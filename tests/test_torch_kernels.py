@@ -1,0 +1,78 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode) and
+skip elsewhere; the plain versions are held against the JAX package by
+test_torch_ops.py. This file imports no JAX, so on a GPU host without JAX
+it runs on its own, past the repository's JAX-loading conftest files:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from eioku_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+from eioku_tpu_torch.ops.scene_diff import pair_diff, pair_diff_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (their plain versions run in test_torch_ops.py)")
+    return torch.device("cuda")
+
+
+def _nms_workload(b, k, seed, pad_from):
+    """Dense overlapping candidates as in tests/test_nms_kernel.py, sorted
+    by score, with a zero-score padding tail."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 80, (b, k, 2))
+    wh = rng.uniform(5, 40, (b, k, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    scores = np.sort(rng.uniform(0.1, 1.0, (b, k)).astype(np.float32),
+                     axis=1)[:, ::-1].copy()
+    scores[:, pad_from:] = 0.0
+    classes = rng.integers(0, 3, (b, k)).astype(np.int32)
+    return boxes, scores, classes
+
+
+# the main path's chunk [SCENE_CHUNK + 1, 96*160*3], a ragged shape (odd N,
+# D not a multiple of 4: the kernel's scalar path) and the smallest chain
+@pytest.mark.parametrize("n,d", [(257, 96 * 160 * 3), (67, 1001), (2, 3)])
+def test_scene_diff_kernel_matches_plain(cuda_device, n, d):
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    chain = torch.rand((n, d), generator=g, device=cuda_device)
+    got = pair_diff(chain)
+    torch.cuda.synchronize()
+    # scores lie in [0, 1]; the kernel sums in another order
+    torch.testing.assert_close(got, pair_diff_plain(chain), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [256, 300, 512, 1024])
+def test_nms_kernel_equals_plain(cuda_device, k):
+    boxes, scores, classes = (torch.from_numpy(a).to(cuda_device) for a in
+                              _nms_workload(64, k, seed=k, pad_from=k - k // 5))
+    got = nms_keep_mask(boxes, scores, classes, 0.45)
+    want = nms_keep_mask_plain(boxes, scores, classes, 0.45)
+    # a discrete output: exactly equal
+    assert torch.equal(got, want)
+    assert not got[:, k - k // 5:].any()
+
+
+def test_nms_wrapper_rejects_inputs_on_two_devices(cuda_device):
+    boxes, scores, classes = (torch.from_numpy(a) for a in
+                              _nms_workload(2, 16, seed=0, pad_from=16))
+    with pytest.raises(ValueError, match="one device"):
+        nms_keep_mask(boxes.to(cuda_device), scores, classes.to(cuda_device))
+
+
+def test_nms_kernel_rejects_a_pool_beyond_shared_memory(cuda_device):
+    k = 10_000  # 25 B per candidate exceeds the 227 KB a block can have
+    boxes = torch.zeros((1, k, 4), device=cuda_device)
+    scores = torch.ones((1, k), device=cuda_device)
+    classes = torch.zeros((1, k), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="nms"):
+        nms_keep_mask(boxes, scores, classes, 0.45)
