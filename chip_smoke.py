@@ -13,15 +13,37 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    over four main-path chains cycled, so that L2 never holds the next input;
 3. K2 NMS keep-mask kernel against its plain version at B = 64,
    K in {256, 300, 512, 1024} with padding tails: keep masks exactly equal;
-4. the slice: InferenceEngine(device="cuda").run_task("visual_analysis")
+3b. K3 flash-attention kernel against its plain version at the Whisper
+   large-v3 encoder's [4, 20, 1500, 64] in bf16 and f32, causal
+   [2, 4, 200, 64] f32, MiniLM's [2, 12, 512, 32] bf16 with lengths
+   [512, 130], and rows of length 0 (zeros, no NaN). fp32: 2e-5 absolute;
+   bf16: 1 bf16 ulp of the plain version (fp32 from the same bf16 inputs,
+   rounded once) plus 2^-16 * sum_j p_j |v_j|, since the kernel splits P into
+   two bf16 terms (csrc/flash_attention.cu). Then kernel / plain / bound /
+   scaled_dot_product_attention times at the encoder's shape;
+4. the visual slice: InferenceEngine(device="cuda").run_task("visual_analysis")
    with scenes + YOLOv8n (full published width, random weights from seed 0,
    bf16) over a 60 s 1280x720 30 fps clip with planted colour cuts. The
    launch counts are zeroed just before the measured run and read just after;
    both kernels must have launched. The scene count must equal the cuts + 1,
    object rows must be finite, and the scene rows must equal those of the
    port's CPU path on the same clip; YOLOv8n fp32 logits on the card (TF32
-   off) must agree with the CPU's on a small batch. A second run takes
-   top_k = 1024 (the K > max_det NMS route);
+   off) must agree with the CPU's on a small batch. A run of the
+   object_detection task takes top_k = 1024 (the K > max_det NMS route);
+4b. transcription at full width: a 150 s 16 kHz wav of five 30 s windows,
+   window 2 digitally silent (the energy VAD drops it: 4 windows, one
+   batch), through run_task("transcription") with Whisper large-v3 (random
+   weights from seed 0, bf16), batch 4, 224 tokens: a warm-up, then a
+   measured run whose K3 launches must be 32 x its encoder calls and whose
+   result must be [] (random weights emit no rows, as in the JAX package);
+4c. production decode at full width: whisper_decode_windows, beam 5, 224
+   tokens with EOT suppressed, on the encoder output of those 4 windows;
+4d. card against CPU on the pretrained path: a random tiny tree (seed 0)
+   saved as whisper-tiny.npz in OpenAI naming, transcribed on the card (TF32
+   off) and on the CPU in fp32 with beam 5 and timestamps: encoder states
+   within 1e-3 and rows equal (where tokens first differ, the CPU's top-2
+   log-prob margin there must be below 1e-3); once more with the
+   temperature ladder on;
 5. one JSON line {"kernels": [...]} with each kernel's launches in the
    measured run, max error, kernel / plain / bound / library times;
 6. the card's name and power limit (nvidia-smi), then, as the last line,
@@ -52,6 +74,24 @@ K2_KS = (256, 300, 512, 1024)
 K2_MAIN_K = 256  # detect()'s default top_k
 CLIP_W, CLIP_H, CLIP_FPS, CLIP_SECONDS = 1280, 720, 30, 60
 CUT_EVERY_S = 10  # 6 colour segments -> 5 planted cuts
+VISUAL_KERNELS = ("scene_diff", "nms")  # K1, K2: the visual pass's kernels
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+K3_SHAPE = (4, 20, 1500, 64)  # Whisper large-v3 encoder, batch 4
+K3_CASES = (  # shape, dtype name, causal, lengths
+    (K3_SHAPE, "bfloat16", False, None),
+    (K3_SHAPE, "float32", False, None),
+    ((2, 4, 200, 64), "float32", True, None),
+    ((2, 12, 512, 32), "bfloat16", False, (512, 130)),
+    ((2, 2, 77, 32), "float32", False, (0, 77)),
+    ((2, 2, 130, 64), "bfloat16", True, (0, 100)),
+)
+AUDIO_SECONDS, SILENT_WINDOW = 150, 2  # five 30 s windows, window 2 silent
+WHISPER_CONFIG = {"model": "large-v3", "random_full_size": True,
+                  "batch_size": 4, "max_tokens": 224}
+TINY_CONFIG = {"model": "tiny", "language": "en", "compute_dtype": "float32",
+               "temperatures": [], "max_tokens": 32, "no_speech_threshold": 2.0}
+TOKEN_MARGIN_TOL = 1e-3  # CPU top-2 log-prob gap where card and CPU part
+ENC_TOL = 1e-3  # tiny encoder, fp32 card (TF32 off) vs CPU
 
 
 def log(msg: str) -> None:
@@ -204,6 +244,89 @@ def phase_k2(dev) -> dict:
     return result
 
 
+def bf16_ulp(x):
+    """Spacing of bf16 values at |x| (8 significant bits)."""
+    import torch
+
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def k3_error(got, want, cancel) -> float:
+    """fp32: max abs error. bf16: the largest (error - 1 ulp - 2^-16 *
+    sum_j p_j |v_j|) over elements, <= 0 when within tolerance."""
+    import torch
+
+    if got.dtype != want.dtype:
+        raise AssertionError("kernel and plain version differ in type")
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return float(diff.max())
+    ulp = bf16_ulp(got.float().abs().maximum(want.float().abs()))
+    return float((diff - ulp - 2.0 ** -16 * cancel).max())
+
+
+def phase_k3(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from eioku_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    result = {}
+    for shape, dtype_name, causal, lengths in K3_CASES:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(shape[2])
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32,
+                                                         device=dev)
+        got = flash_attention(q, k, v, lengths=lens, causal=causal)
+        want = flash_attention_plain(q, k, v, lengths=lens, causal=causal)
+        cancel = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                       lengths=lens, causal=causal)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K3 {shape} {dtype_name}: non-finite output")
+        if lengths is not None and lengths[0] == 0 and bool(got[0].any()):
+            raise AssertionError(f"K3 {shape}: a row with no valid key is not zero")
+        err = k3_error(got, want, cancel)
+        max_abs = float((got.float() - want.float()).abs().max())
+        tol = 2e-5 if dtype == torch.float32 else 0.0
+        log(f"K3 flash_attention {list(shape)} {dtype_name} causal={causal} "
+            f"lengths={lengths}: max abs err {max_abs:.3e}"
+            + ("" if dtype == torch.float32 else f", excess over 1 ulp + 2^-16 "
+               f"sum p|v| {err:.3e}"))
+        if not err <= tol:
+            raise AssertionError(f"K3 disagrees with its plain version at {shape} "
+                                 f"{dtype_name}: {err}")
+        if (shape, dtype_name) == (K3_SHAPE, "bfloat16"):
+            result["max_abs_err"] = max_abs
+    # timing at the encoder's shape and layout: [B, S, H, D] projections
+    # viewed as [B, H, S, D]; two input sets (2 x 46 MB) cycled past the L2
+    b, h, s_len, d = K3_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sets = [tuple(torch.randn((b, s_len, h, d), generator=gen, device=dev)
+                  .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+            for _ in range(2)]
+    ms = cuda_ms(flash_attention, iters=30, args=sets)
+    plain_ms = cuda_ms(flash_attention_plain, iters=5, warmup=1, args=sets)
+    library_ms = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, scale=d ** -0.5), iters=30, args=sets)
+    nbytes = 4 * b * h * s_len * d * 2  # q, k, v read once, o written once
+    ops = 4 * b * h * s_len * s_len * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    result.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": library_ms})
+    log(f"K3 {list(K3_SHAPE)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+        f"{result['bound_ms']:.4f} ms ({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return result
+
+
 def write_clip(path: str) -> int:
     """A 1280x720 mp4v clip of solid colour segments with per-pixel noise and
     a moving block; returns the number of planted cuts."""
@@ -273,20 +396,25 @@ def phase_slice(dev, workdir: str) -> dict:
     out, wall = run(config, "measured")
     launches = _cuda.launch_counts()
     log(f"launches in the measured run: {launches}")
-    for name in _cuda.KERNELS:
+    for name in VISUAL_KERNELS:
         if launches[name] < 1:
-            raise AssertionError(f"the main path never launched {name}")
+            raise AssertionError(f"the visual pass never launched {name}")
     if len(out["scene_detection"]) != cuts + 1:
         raise AssertionError(f"expected {cuts + 1} scenes, got "
                              f"{out['scene_detection']}")
     _check_object_rows(out["object_detection"])
 
+    # the K > max_det NMS route, on the task that honours top_k (the
+    # combined pass, like the JAX package's, ignores it)
     _cuda.reset_launch_counts()
-    big, _ = run({**config, "object_detection": {"batch_size": 64, "top_k": 1024}},
-                 "top_k=1024")
+    t = time.perf_counter()
+    big = engine.run_task("object_detection", clip, {"batch_size": 64, "top_k": 1024})
+    torch.cuda.synchronize()
     if _cuda.launch_counts()["nms"] < 1:
         raise AssertionError("the top_k=1024 route never launched the NMS kernel")
-    _check_object_rows(big["object_detection"])
+    _check_object_rows(big)
+    log(f"object_detection top_k=1024: {time.perf_counter() - t:.3f} s, "
+        f"{len(big)} rows")
 
     # reference: the port's CPU path (plain versions) gives the same scenes
     cpu_scenes = InferenceEngine(device="cpu").run_task(
@@ -327,6 +455,243 @@ def phase_logits_reference(dev) -> None:
         torch.backends.cudnn.allow_tf32 = True
 
 
+def write_speech_wav(path: str) -> None:
+    """AUDIO_SECONDS of 16 kHz mono: a gliding tone with noise in every 30 s
+    window except SILENT_WINDOW, which is digitally silent."""
+    import wave
+
+    sr = 16000
+    rng = np.random.default_rng(0)
+    t = np.arange(sr * AUDIO_SECONDS) / sr
+    x = 0.3 * np.sin(2 * np.pi * (180 + 40 * np.sin(0.5 * t)) * t) \
+        + 0.05 * rng.standard_normal(t.shape)
+    x[SILENT_WINDOW * 30 * sr:(SILENT_WINDOW + 1) * 30 * sr] = 0.0
+    pcm = (np.clip(x, -1, 1) * 32767).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+
+
+def _count_calls(module, name: str) -> list:
+    """Wrap module.name so that each call appends to the returned list."""
+    calls, fn = [], getattr(module, name)
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return fn(*a, **kw)
+    setattr(module, name, counted)
+    return calls
+
+
+def phase_transcription(dev, wav: str) -> dict:
+    import torch
+
+    from eioku_tpu_torch.ml import transcribe
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.models.whisper.model import WhisperConfig
+    from eioku_tpu_torch.ops import _cuda
+
+    n_layers = WhisperConfig(WHISPER_CONFIG["model"]).n_enc_layers
+    engine = InferenceEngine(device=dev)
+    enc_calls = _count_calls(transcribe, "whisper_encode")
+
+    def run(label: str) -> tuple[list, float]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = engine.run_task("transcription", wav, WHISPER_CONFIG)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        log(f"transcription {label}: {wall:.3f} s wall, "
+            f"{AUDIO_SECONDS / wall:.2f} audio-s/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, {len(out)} rows")
+        return out, wall
+
+    run("warm-up")  # random large-v3 init on the card, cuBLAS handles
+    enc_calls.clear()
+    _cuda.reset_launch_counts()
+    out, wall = run("measured")
+    launches = _cuda.launch_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    log(f"launches in the measured transcription: {launches}; "
+        f"{len(enc_calls)} encoder calls")
+    if launches["flash_attention"] != n_layers * len(enc_calls) or not enc_calls:
+        raise AssertionError(f"K3 launched {launches['flash_attention']} times for "
+                             f"{len(enc_calls)} encoder calls of {n_layers} layers")
+    if out != []:
+        raise AssertionError(f"random weights must emit no rows, got {out[:3]}")
+    return {"launches": launches, "wall_s": wall,
+            "audio_s_per_s": AUDIO_SECONDS / wall, "peak_mib": peak_mib,
+            "encoder_calls": len(enc_calls)}
+
+
+def phase_production_decode(dev, wav: str) -> dict:
+    """whisper_decode_windows at large-v3, beam 5, 224 tokens, EOT suppressed
+    (every row pays all 224 positions), on the 4 voiced windows."""
+    import torch
+
+    from eioku_tpu_torch.ml import audio_io, transcribe
+    from eioku_tpu_torch.models.whisper.decoding import (
+        build_suppress_masks,
+        whisper_decode_windows,
+    )
+    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from eioku_tpu_torch.models.whisper.model import whisper_encode
+    from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
+
+    model, cfg, _ = transcribe._load_model(
+        WHISPER_CONFIG["model"], None, "bfloat16", WHISPER_CONFIG["random_full_size"],
+        dev)
+    windows = audio_io.split_windows(audio_io.load_wav(wav))
+    mel = log_mel_spectrogram(torch.from_numpy(np.stack([w for _, w in windows]))
+                              .to(dev), n_mels=cfg.n_mels)
+    enc = whisper_encode(model, mel)
+    tk = WhisperTokens(cfg.vocab_size)
+    sot = tk.sot_sequence("en")
+    init = torch.tensor([sot] * len(windows), device=dev)
+    sup_a, sup_b = build_suppress_masks(tk, timestamps=True)
+    sup_a[tk.eot] = True
+    max_len = WHISPER_CONFIG["max_tokens"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, avg_lp, _ = whisper_decode_windows(model, enc, init, sup_a, sup_b,
+                                            max_len=max_len, beam_size=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if not bool(torch.isfinite(avg_lp).all()) or bool((out[:, len(sot):] == tk.eot).any()):
+        raise AssertionError("production decode: non-finite scores or an EOT")
+    tokens = len(windows) * (max_len - len(sot))
+    audio_s = 30.0 * len(windows)
+    log(f"production decode {cfg.variant} beam 5, {len(windows)} windows x "
+        f"{max_len - len(sot)} tokens: {wall:.3f} s, {audio_s / wall:.2f} audio-s/s, "
+        f"{tokens / wall:.1f} decoded tokens/s")
+    return {"wall_s": wall, "audio_s_per_s": audio_s / wall,
+            "tokens_per_s": tokens / wall, "windows": len(windows)}
+
+
+def _first_divergence_margin(cpu_model, card_model, wav: str, dev) -> float:
+    """Where the CPU's and the card's decoded tokens first part: the CPU's
+    top-2 log-prob margin at that step (decode_full on the CPU's prefix)."""
+    import torch
+
+    from eioku_tpu_torch.ml import audio_io
+    from eioku_tpu_torch.models.whisper.decoding import (
+        build_suppress_masks,
+        whisper_decode_windows,
+    )
+    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from eioku_tpu_torch.models.whisper.model import (
+        whisper_decode_full,
+        whisper_encode,
+    )
+    from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
+
+    tk = WhisperTokens(cpu_model.cfg.vocab_size)
+    wavs = torch.from_numpy(np.stack([w for _, w in audio_io.split_windows(
+        audio_io.load_wav(wav))]))
+    sot = tk.sot_sequence("en", timestamps=True)
+    sup_a, sup_b = build_suppress_masks(tk, timestamps=True)
+    rows = {}
+    for name, model, d in (("cpu", cpu_model, torch.device("cpu")),
+                           ("card", card_model, dev)):
+        enc = whisper_encode(model, log_mel_spectrogram(wavs.to(d), 80))
+        init = torch.tensor([sot] * len(wavs), device=d)
+        rows[name] = whisper_decode_windows(
+            model, enc, init, sup_a, sup_b, max_len=TINY_CONFIG["max_tokens"],
+            beam_size=5)[0].cpu()
+        if name == "cpu":
+            cpu_enc = enc
+    diff = (rows["cpu"] != rows["card"]).nonzero()
+    if len(diff) == 0:
+        return 0.0
+    w, p = (int(v) for v in diff[0])
+    logits = whisper_decode_full(cpu_model, rows["cpu"][w:w + 1, :p], cpu_enc[w:w + 1])
+    lp = torch.log_softmax(logits[0, -1].masked_fill(sup_a, -1e30), dim=-1)
+    top2 = lp.topk(2).values
+    margin = float(top2[0] - top2[1])
+    log(f"card and CPU tokens first part in window {w} at position {p}: "
+        f"CPU {int(rows['cpu'][w, p])}, card {int(rows['card'][w, p])}; "
+        f"CPU top-2 log-prob margin there {margin:.3e}")
+    return margin
+
+
+def phase_card_vs_cpu(dev, wav: str, workdir: str) -> dict:
+    import torch
+
+    from eioku_tpu_torch.ml import audio_io, transcribe
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from eioku_tpu_torch.models.whisper.model import (
+        WhisperConfig,
+        init_whisper,
+        whisper_encode,
+    )
+    from eioku_tpu_torch.models.whisper.weights import load_whisper_checkpoint
+
+    cache = os.path.join(workdir, "models")
+    os.makedirs(cache)
+    cfg = WhisperConfig("tiny")
+    tree = init_whisper(cfg, torch.Generator().manual_seed(0))
+    np.savez(os.path.join(cache, "whisper-tiny.npz"),
+             **{k: v.detach().numpy() for k, v in tree.state_dict().items()})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        path = os.path.join(cache, "whisper-tiny.npz")
+        cpu_model = load_whisper_checkpoint(path, cfg, "cpu")
+        card_model = load_whisper_checkpoint(path, cfg, dev)
+        wav0 = torch.from_numpy(audio_io.split_windows(audio_io.load_wav(wav))[0][1])
+        mel = log_mel_spectrogram(wav0[None], 80)
+        enc_cpu = whisper_encode(cpu_model, mel)
+        enc_card = whisper_encode(card_model, mel.to(dev)).cpu()
+        enc_err = float((enc_card - enc_cpu).abs().max())
+        log(f"tiny fp32 encoder states card vs CPU: max abs err {enc_err:.3e} "
+            f"(max |state| {float(enc_cpu.abs().max()):.3e})")
+        if not enc_err <= ENC_TOL:
+            raise AssertionError(f"encoder states differ: {enc_err}")
+        transcribe._load_model.cache_clear()
+        rows = {}
+        for name in ("cuda", "cpu"):
+            t = time.perf_counter()
+            rows[name] = InferenceEngine(model_cache_dir=cache, device=(
+                dev if name == "cuda" else "cpu")).run_task(
+                "transcription", wav, TINY_CONFIG)
+            log(f"tiny pretrained-path transcription on {name}: "
+                f"{time.perf_counter() - t:.3f} s, {len(rows[name])} rows")
+        strip = lambda rs: [{**r, "payload": {k: v for k, v in r["payload"].items()  # noqa: E731
+                                              if k != "confidence"}} for r in rs]
+        conf = [(a["payload"]["confidence"], b["payload"]["confidence"])
+                for a, b in zip(rows["cuda"], rows["cpu"])]
+        equal = strip(rows["cuda"]) == strip(rows["cpu"]) and \
+            all(abs(a - b) <= 1e-4 for a, b in conf)
+        margin = 0.0
+        if not rows["cpu"]:
+            raise AssertionError("the pretrained path emitted no rows on the CPU")
+        if equal:
+            log("tiny pretrained-path rows: card equals CPU")
+        else:
+            margin = _first_divergence_margin(cpu_model, card_model, wav, dev)
+            if not margin < TOKEN_MARGIN_TOL:
+                raise AssertionError(f"card rows differ from the CPU's and the CPU's "
+                                     f"top-2 margin is {margin} >= {TOKEN_MARGIN_TOL}")
+        t = time.perf_counter()
+        ladder = InferenceEngine(model_cache_dir=cache, device=dev).run_task(
+            "transcription", wav, {k: v for k, v in TINY_CONFIG.items()
+                                   if k != "temperatures"})
+        if not all(math.isfinite(r["payload"]["confidence"]) for r in ladder):
+            raise AssertionError("the temperature ladder gave non-finite rows")
+        log(f"tiny with the temperature ladder on the card: "
+            f"{time.perf_counter() - t:.3f} s, {len(ladder)} rows")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        transcribe._load_model.cache_clear()
+    return {"enc_max_abs_err": enc_err, "rows_equal": equal,
+            "rows": len(rows["cpu"]), "margin": margin}
+
+
 def main() -> int:
     import torch
 
@@ -345,9 +710,15 @@ def main() -> int:
     phase_build()
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
+    k3 = phase_k3(dev)
     phase_logits_reference(dev)
     with tempfile.TemporaryDirectory(prefix="eioku_smoke_") as workdir:
         sl = phase_slice(dev, workdir)
+        wav = os.path.join(workdir, "speech.wav")
+        write_speech_wav(wav)
+        tr = phase_transcription(dev, wav)
+        dec = phase_production_decode(dev, wav)
+        vs_cpu = phase_card_vs_cpu(dev, wav, workdir)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
@@ -357,8 +728,14 @@ def main() -> int:
          "source": "eioku_tpu_torch/csrc/nms.cu",
          "replaces": "eioku_tpu/ops/nms.py:30",
          "launches": sl["launches"]["nms"], **k2},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "eioku_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "eioku_tpu/ops/flash_attention.py:27",
+         "launches": tr["launches"]["flash_attention"], **k3},
     ]
     print(json.dumps({"slice": {k: v for k, v in sl.items() if k != "launches"}}))
+    print(json.dumps({"transcription": {k: v for k, v in tr.items() if k != "launches"},
+                      "production_decode": dec, "card_vs_cpu": vs_cpu}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -49,12 +49,12 @@ SCENE_CHUNK = 256
 _UNPORTED_SUBTASKS = ("face_detection", "place_classification", "ocr")
 
 
-def _detect_i420(model, planes: torch.Tensor, conf_threshold: float,
-                 top_k: int) -> dict:
+def _detect_i420(model, planes: torch.Tensor, conf_threshold: float) -> dict:
     """Upload-lean detection: I420 planes in, the whole detect graph on the
-    device."""
-    return detect(model, i420_to_rgb(planes), conf_threshold=conf_threshold,
-                  top_k=top_k)
+    device. detect() keeps its default candidate pool (top_k 256): the
+    combined pass, like the JAX package's, does not read
+    object_detection.top_k (the standalone object_detection task does)."""
+    return detect(model, i420_to_rgb(planes), conf_threshold=conf_threshold)
 
 
 class _DetectionConsumer:
@@ -68,7 +68,7 @@ class _DetectionConsumer:
     MAX_PENDING = 16
 
     def __init__(self, model_name: str, conf: float, step: int,
-                 batch_size: int, top_k: int, cache_dir, frame_ms: int,
+                 batch_size: int, cache_dir, frame_ms: int,
                  src_wh: tuple[int, int], coord_scale: float,
                  device: torch.device):
         self.model = _load_model(model_name, len(COCO_CLASSES), cache_dir,
@@ -77,7 +77,6 @@ class _DetectionConsumer:
         self.conf = conf
         self.step = max(step, 1)
         self.batch_size = batch_size
-        self.top_k = top_k
         self.frame_ms = frame_ms
         self.src_wh = src_wh
         self.coord_scale = coord_scale
@@ -122,10 +121,10 @@ class _DetectionConsumer:
         if boxed.shape[1] % 2 == 0 and boxed.shape[2] % 2 == 0:
             # ship I420 (half the bytes); the device converts back
             planes = torch.from_numpy(to_i420(list(boxed))).to(self.device)
-            out = _detect_i420(self.model, planes, self.conf, self.top_k)
+            out = _detect_i420(self.model, planes, self.conf)
         else:  # odd geometry can't subsample chroma: plain RGB upload
             out = detect(self.model, torch.from_numpy(boxed).to(self.device),
-                         conf_threshold=self.conf, top_k=self.top_k)
+                         conf_threshold=self.conf)
         self._pending.append((out, self._meta, scale, pads, valid))
         self._frames, self._meta = [], []
         if len(self._pending) >= self.MAX_PENDING:
@@ -190,7 +189,7 @@ def run_visual_analysis(video_path: str, config: dict,
         ocfg.get("model", "yolov8n"),
         float(ocfg.get("confidence_threshold", 0.5)),
         substep(float(ocfg.get("frame_interval_s", 1.0))),
-        int(ocfg.get("batch_size", 64)), int(ocfg.get("top_k", 256)),
+        int(ocfg.get("batch_size", 64)),
         model_cache_dir, frame_ms, (info.width, info.height), coord_scale,
         dev) if ocfg is not None else None
 

@@ -1,10 +1,10 @@
 """Inference engine: task-type dispatch into the port's device paths
 (port of eioku_tpu/ml/engine.py).
 
-Same dispatch keys as the JAX engine. This slice implements
-scene_detection, object_detection and visual_analysis (scenes + objects);
-every other task type raises ModelNotAvailable, which the task handler
-records as a clean task failure.
+Same dispatch keys as the JAX engine. The port implements
+scene_detection, object_detection, visual_analysis (scenes + objects) and
+transcription; every other task type raises ModelNotAvailable, which the
+task handler records as a clean task failure.
 
 Results are lists of {"payload": dict, "span_start_ms": int,
 "span_end_ms": int}; visual_analysis returns {sub_task_type: results}.
@@ -59,6 +59,7 @@ class InferenceEngine:
             "scene_detection": self._scene_detection,
             "object_detection": self._object_detection,
             "visual_analysis": self._visual_analysis,
+            "transcription": self._transcription,
         }
         self._dispatch: dict[str, Callable[[str, dict], Any]] = {
             t: ported.get(t, self._not_ported(t)) for t in _TASK_TYPES}
@@ -105,3 +106,9 @@ class InferenceEngine:
         return run_visual_analysis(video_path, config,
                                    model_cache_dir=self.model_cache_dir,
                                    device=self.device)
+
+    def _transcription(self, video_path: str, config: dict) -> list[dict]:
+        from eioku_tpu_torch.ml.transcribe import run_transcription
+        return run_transcription(video_path, config,
+                                 model_cache_dir=self.model_cache_dir,
+                                 device=self.device)

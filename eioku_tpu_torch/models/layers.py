@@ -1,10 +1,14 @@
-"""Neural-net building blocks the YOLOv8 port needs (from eioku_tpu/models/layers.py).
+"""Neural-net building blocks of the port (from eioku_tpu/models/layers.py).
 
-Activations are NCHW inside the modules (PyTorch's layout); convolution
+YOLOv8: activations are NCHW inside the modules (PyTorch's layout); convolution
 padding is the symmetric (k-1)//2 that converted torch checkpoints were
 trained with, which `nn.Conv2d(padding=k // 2)` is for odd k. Batch norm is
 inference-mode with the ultralytics eps 1e-3 and folds into the conv at load
 time (`ConvBN.fold`).
+
+Transformers (Whisper): `layer_norm`, `Linear` and `gelu` round where the
+JAX package's `layernorm`, `linear` and `jax.nn.gelu` round, so a bf16 model
+computes what the JAX package's bf16 model computes.
 """
 from __future__ import annotations
 
@@ -77,3 +81,37 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()  # gamma 1, beta 0, mean 0, var 1
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Statistics in fp32 (population variance), the normalised value cast to
+    x's type, then gamma and beta applied in x's type."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * weight.to(x.dtype) + bias.to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm's parameters (`weight`, `bias`) with `layer_norm`'s
+    rounding."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Linear(nn.Linear):
+    """x W^T with fp32 accumulation, rounded to x's type, then + b in x's
+    type (the bias is added after the rounding, as the JAX package adds it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.linear(x, self.weight.to(x.dtype))
+        return out if self.bias is None else out + self.bias.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation: jax.nn.gelu's default
+    (torch.nn.functional.gelu defaults to the erf form)."""
+    return F.gelu(x, approximate="tanh")

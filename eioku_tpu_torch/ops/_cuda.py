@@ -25,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNELS = ("scene_diff", "nms")
+KERNELS = ("scene_diff", "nms", "flash_attention")
 # nms.cu must round its IoU exactly like the reference: no contracted FMAs
 _EXTRA_FLAGS = {"nms": ("-fmad=false",)}
 
@@ -119,6 +119,12 @@ def _configure(lib: ctypes.CDLL) -> None:
         lib.eioku_nms_keep.argtypes = [vp, vp, vp, vp, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_float, vp]
         lib.eioku_nms_keep.restype = ctypes.c_int
+    if hasattr(lib, "eioku_flash_attention"):
+        i32 = ctypes.c_int
+        lib.eioku_flash_attention.argtypes = [
+            vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, i32, vp]
+        lib.eioku_flash_attention.restype = ctypes.c_int
     lib.eioku_cuda_error_string.argtypes = [ctypes.c_int]
     lib.eioku_cuda_error_string.restype = ctypes.c_char_p
 

@@ -76,3 +76,87 @@ def test_nms_kernel_rejects_a_pool_beyond_shared_memory(cuda_device):
     classes = torch.zeros((1, k), dtype=torch.int32, device=cuda_device)
     with pytest.raises(RuntimeError, match="nms"):
         nms_keep_mask(boxes, scores, classes, 0.45)
+
+
+def _bf16_ulp(x):
+    """Spacing of bf16 values at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _qkv(shape, dtype, device, seed, scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+            for _ in range(3)]
+
+
+def _assert_flash_close(got, want, cancel):
+    """fp32: 2e-5 absolute (fp32 FMAs in another order: the Pallas kernel's
+    own tolerance). bf16: within 1 bf16 ulp of the plain version, which
+    computes in fp32 from the same bf16 inputs and rounds once, plus
+    2^-16 * sum_j p_j |v_j| (`cancel`): the kernel splits P into two bf16
+    terms (16 significant bits) and accumulates in another order, which
+    shows where the output cancels to near zero."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        return
+    diff = (got.float() - want.float()).abs()
+    ulp = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+    excess = diff - ulp - 2.0 ** -16 * cancel
+    assert bool((excess <= 0).all()), float(excess.max())
+
+
+# the Whisper large-v3 encoder's shape (bf16 on the path, f32 with
+# compute_dtype float32), a causal ragged case, MiniLM's lengths case
+@pytest.mark.parametrize("shape,dtype,causal,lengths", [
+    ((4, 20, 1500, 64), torch.bfloat16, False, None),
+    ((4, 20, 1500, 64), torch.float32, False, None),
+    ((2, 4, 200, 64), torch.float32, True, None),
+    ((2, 12, 512, 32), torch.bfloat16, False, [512, 130]),
+    ((2, 2, 77, 32), torch.float32, False, [0, 77]),
+    ((2, 2, 130, 64), torch.bfloat16, True, [0, 100]),
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, causal,
+                                              lengths):
+    from eioku_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    q, k, v = _qkv(shape, dtype, cuda_device, seed=shape[2])
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32,
+                                                     device=cuda_device)
+    got = flash_attention(q, k, v, lengths=lens, causal=causal)
+    want = flash_attention_plain(q, k, v, lengths=lens, causal=causal)
+    cancel = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                   lengths=lens, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    if lengths is not None and lengths[0] == 0:
+        assert not bool(got[0].any())  # no valid key: zeros, not NaN
+    _assert_flash_close(got, want, cancel)
+
+
+def test_flash_attention_kernel_reads_strided_heads(cuda_device):
+    # the encoder's layout: [B, S, H, D] projections viewed as [B, H, S, D]
+    from eioku_tpu_torch.ops.flash_attention import flash_attention
+
+    b, s, h, d = 2, 300, 6, 64
+    q, k, v = (t.view(b, s, h, d).transpose(1, 2) for t in
+               _qkv((b, s, h * d), torch.bfloat16, cuda_device, seed=3))
+    got = flash_attention(q, k, v)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_kernel_refuses_other_inputs(cuda_device):
+    from eioku_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v = _qkv((1, 2, 64, 48), torch.bfloat16, cuda_device, seed=0)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v)
+    q, k, v = _qkv((1, 2, 64, 64), torch.float16, cuda_device, seed=0)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        flash_attention(q, k, v)

@@ -181,16 +181,43 @@ def test_visual_analysis_object_rows_match_jax(detector_clip, yolo_cache_dir,
         (matched, len(jrows), len(trows))
 
 
-def test_visual_analysis_honours_top_k(detector_clip):
+def test_visual_analysis_ignores_top_k_like_jax(detector_clip, yolo_cache_dir,
+                                                monkeypatch):
+    # the JAX combined pass never reads object_detection.top_k (its
+    # _detect_i420 calls detect with the default pool of 256); the port's
+    # pass must give the same rows with top_k set, at one precision (fp32,
+    # see test_visual_analysis_object_rows_match_jax)
+    monkeypatch.setattr(jax_combined, "_detect_i420", _jax_detect_i420_fp32)
     config = {"decode_fast": 0,
-              "object_detection": {"batch_size": 4, "confidence_threshold": 0.0}}
-    small = run_visual_analysis(detector_clip, {
-        **config, "object_detection": {**config["object_detection"], "top_k": 8}},
-        device="cpu")
-    frames = {r["payload"]["frame_number"] for r in small["object_detection"]}
-    per_frame = [sum(r["payload"]["frame_number"] == f
-                     for r in small["object_detection"]) for f in frames]
+              "object_detection": {"batch_size": 4, "top_k": 8}}
+    want = jax_visual_analysis(detector_clip, config, yolo_cache_dir)
+    got = run_visual_analysis(detector_clip, config, yolo_cache_dir, device="cpu")
+    plain = run_visual_analysis(
+        detector_clip, {"decode_fast": 0, "object_detection": {"batch_size": 4}},
+        yolo_cache_dir, device="cpu")
+    jrows, trows = want["object_detection"], got["object_detection"]
+    assert trows == plain["object_detection"]  # top_k changes nothing
+    per_frame = [sum(r["payload"]["frame_number"] == f for r in trows)
+                 for f in {r["payload"]["frame_number"] for r in trows}]
+    assert max(per_frame) > 8  # more rows than the ignored cap would allow
+    matched = _match_rows(jrows, trows)
+    assert matched >= 0.98 * max(len(jrows), len(trows)), \
+        (matched, len(jrows), len(trows))
+
+
+def test_object_detection_task_honours_top_k(detector_clip):
+    rows = InferenceEngine(device="cpu").run_task(
+        "object_detection", detector_clip,
+        {"batch_size": 4, "confidence_threshold": 0.0, "top_k": 8,
+         "decode_fast": 0})
+    frames = {r["payload"]["frame_number"] for r in rows}
+    per_frame = [sum(r["payload"]["frame_number"] == f for r in rows)
+                 for f in frames]
     assert frames and max(per_frame) <= 8
+
+
+# options of a task the port runs, still refused
+_STILL_REFUSED = {"transcription": {"compute_dtype": "int8"}}
 
 
 @pytest.mark.parametrize("task_type", [
@@ -199,7 +226,8 @@ def test_visual_analysis_honours_top_k(detector_clip):
     "no_such_task"])
 def test_unported_tasks_raise(task_type, scene_video):
     with pytest.raises(ModelNotAvailable):
-        InferenceEngine(device="cpu").run_task(task_type, scene_video, {})
+        InferenceEngine(device="cpu").run_task(
+            task_type, scene_video, _STILL_REFUSED.get(task_type, {}))
 
 
 @pytest.mark.parametrize("config,needle", [

@@ -1,16 +1,26 @@
-"""Where the time goes in the PyTorch port's combined visual pass, on one GPU.
+"""Where the time goes in the PyTorch port's slices, on one GPU.
 
-    python3 tools/torch_profile_slice.py
+    python3 tools/torch_profile_slice.py [visual|transcription]
 
-Uses chip_smoke.py's clip (60 s, 1280x720, 30 fps, planted colour cuts) and
-the same task config (scenes + YOLOv8n objects, batch 64, random weights).
-On the card it measures:
+visual (the default) uses chip_smoke.py's clip (60 s, 1280x720, 30 fps,
+planted colour cuts) and task config (scenes + YOLOv8n objects, batch 64,
+random weights). On the card it measures:
 
 1. decode only: the pass's own decode loop (same sampling grid, geometry and
    decode threads) with no consumer -- the host decode floor;
 2. the pass: one warm-up run, then one run under torch.profiler: wall time,
    device busy time (union of the kernels' intervals), the device's idle
    share of the wall, and device time by kernel name.
+
+transcription uses chip_smoke.py's 150 s wav (4 voiced 30 s windows) and
+its full-width config (Whisper large-v3, random weights, bf16, batch 4, 224
+tokens). After a warm-up run of the task it times one run of the whole task
+(no profiler), then profiles, each on its own, the encoder call on the 4
+windows and the task's greedy decode cut to its first DECODE_PROFILE_TOKENS
+positions (a full decode is ~570k device events, more than the profiler's
+post-processing handles in minutes). Each profile's device time is sorted
+into K3, matrix products (cuBLAS/cuDNN kernels) and the rest; the decode's
+is also given per step.
 
 Prints a human-readable report on stderr and one JSON line on stdout.
 Needs CUDA; exits nonzero without it.
@@ -29,6 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the clip and config of the smoke run)
 
 CONFIG = {"scene_detection": {}, "object_detection": {"batch_size": 64}}
+DECODE_PROFILE_TOKENS = 32
 
 
 def decode_only_seconds(clip: str) -> tuple[float, int]:
@@ -60,17 +71,132 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return busy
 
 
-def main() -> int:
+def _device_events(prof):
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    if "flash_bf16_mma" in low or "flash_simt" in low:
+        return "K3 flash_attention"
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
+                              "gemv", "kernel2", "conv")):
+        return "matmul"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def _breakdown(prof, wall_s: float, top: int = 12) -> dict:
+    by_kernel: dict[str, float] = defaultdict(float)
+    by_cat: dict[str, float] = defaultdict(float)
+    intervals = []
+    events = _device_events(prof)
+    for e in events:
+        us = e.time_range.elapsed_us()
+        by_kernel[e.name] += us
+        by_cat[_category(e.name)] += us
+        intervals.append((e.time_range.start, e.time_range.end))
+    busy_s = _union_us(intervals) / 1e6
+    return {"wall_s": wall_s, "device_busy_s": busy_s if intervals else None,
+            "device_idle_share": 1.0 - busy_s / wall_s if intervals else None,
+            "device_launches": len(events),
+            "device_ms_by_category": {k: v / 1e3 for k, v in sorted(
+                by_cat.items(), key=lambda kv: -kv[1])},
+            "device_ms_by_kernel": {k: v / 1e3 for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:top]}}
+
+
+def _profiled(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    return out, prof, wall_s
+
+
+def transcription(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from eioku_tpu_torch.ml import audio_io, transcribe
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.models.whisper.decoding import (
+        build_suppress_masks,
+        whisper_decode_windows,
+    )
+    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from eioku_tpu_torch.models.whisper.model import whisper_encode
+    from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
+
+    config = chip_smoke.WHISPER_CONFIG
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="eioku_profile_") as workdir:
+        wav = os.path.join(workdir, "speech.wav")
+        chip_smoke.write_speech_wav(wav)
+        engine = InferenceEngine(device="cuda")
+        engine.run_task("transcription", wav, config)  # warm-up, loads the model
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.run_task("transcription", wav, config)
+        torch.cuda.synchronize()
+        task_wall_s = time.perf_counter() - t
+        model, cfg, _ = transcribe._load_model(
+            config["model"], None, "bfloat16", config["random_full_size"], dev)
+        windows = audio_io.split_windows(audio_io.load_wav(wav))
+        mel = log_mel_spectrogram(torch.from_numpy(
+            np.stack([w for _, w in windows])).to(dev), n_mels=cfg.n_mels)
+        enc, prof, wall = _profiled(lambda: whisper_encode(model, mel))
+        encode = _breakdown(prof, wall)
+        tk = WhisperTokens(cfg.vocab_size)
+        sot = tk.sot_sequence("en")  # the task's greedy, no-timestamp prompt
+        init = torch.tensor([sot] * len(windows), device=dev)
+        sup_a, sup_b = build_suppress_masks(tk, timestamps=False)
+        out, prof, wall = _profiled(lambda: whisper_decode_windows(
+            model, enc, init, sup_a, sup_b, max_len=DECODE_PROFILE_TOKENS,
+            beam_size=1, timestamps=False))
+        decode = _breakdown(prof, wall)
+        steps = DECODE_PROFILE_TOKENS - 1  # prefill + generated positions
+        decode["steps"] = steps
+        decode["launches_per_step"] = decode["device_launches"] / steps
+        decode["wall_ms_per_step"] = wall / steps * 1e3
+        decode["device_busy_ms_per_step"] = decode["device_busy_s"] / steps * 1e3
+    report = {"card": card, "mode": "transcription", "config": config,
+              "windows": len(windows), "task_wall_s": task_wall_s,
+              "encode": encode, "decode": decode}
+    print(f"card: {card}", file=sys.stderr)
+    print(f"task: {task_wall_s:.3f} s wall (no profiler)", file=sys.stderr)
+    print(f"decode: {decode['launches_per_step']:.0f} launches, "
+          f"{decode['wall_ms_per_step']:.2f} ms wall and "
+          f"{decode['device_busy_ms_per_step']:.2f} ms device busy per step",
+          file=sys.stderr)
+    for name in ("encode", "decode"):
+        part = report[name]
+        print(f"{name}: {part['wall_s']:.3f} s wall, device busy "
+              f"{part['device_busy_s']:.3f} s, idle share "
+              f"{part['device_idle_share']:.3f}, {part['device_launches']} launches",
+              file=sys.stderr)
+        for cat, ms in part["device_ms_by_category"].items():
+            print(f"  {ms:9.3f} ms  [{cat}]", file=sys.stderr)
+        for kname, ms in part["device_ms_by_kernel"].items():
+            print(f"  {ms:9.3f} ms  {kname[:100]}", file=sys.stderr)
+    return report
+
+
+def visual(card: str) -> dict:
+    import torch
 
     from eioku_tpu_torch.ml.engine import InferenceEngine
     from eioku_tpu_torch.ops import _cuda
 
-    if not torch.cuda.is_available():
-        print("FAILED: needs CUDA", file=sys.stderr)
-        return 2
-    card = chip_smoke.nvidia_smi_line()
     with tempfile.TemporaryDirectory(prefix="eioku_profile_") as workdir:
         clip = os.path.join(workdir, "clip.mp4")
         chip_smoke.write_clip(clip)
@@ -79,35 +205,35 @@ def main() -> int:
         engine.run_task("visual_analysis", clip, CONFIG)  # warm-up
         torch.cuda.synchronize()
         _cuda.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            engine.run_task("visual_analysis", clip, CONFIG)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t
+        _, prof, wall_s = _profiled(
+            lambda: engine.run_task("visual_analysis", clip, CONFIG))
         launches = _cuda.launch_counts()
-
-    by_kernel: dict[str, float] = defaultdict(float)
-    intervals = []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name] += e.time_range.elapsed_us()
-            intervals.append((e.time_range.start, e.time_range.end))
-    busy_s = _union_us(intervals) / 1e6
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    report = {
-        "card": card, "clip_seconds": chip_smoke.CLIP_SECONDS,
-        "sampled_frames": frames, "decode_only_s": decode_s,
-        "pass_wall_s": wall_s, "device_busy_s": busy_s if intervals else None,
-        "device_idle_share": 1.0 - busy_s / wall_s if intervals else None,
-        "launches": launches,
-        "device_ms_by_kernel": {k: v / 1e3 for k, v in top},
-    }
+    report = {"card": card, "mode": "visual",
+              "clip_seconds": chip_smoke.CLIP_SECONDS, "sampled_frames": frames,
+              "decode_only_s": decode_s, "launches": launches,
+              "pass": _breakdown(prof, wall_s)}
     print(f"card: {card}", file=sys.stderr)
     print(f"decode only: {decode_s:.3f} s for {frames} sampled frames; pass: "
-          f"{wall_s:.3f} s wall, device busy {busy_s:.3f} s", file=sys.stderr)
-    for name, us in top:
-        print(f"  {us / 1e3:9.3f} ms  {name[:100]}", file=sys.stderr)
-    print(json.dumps(report))
+          f"{wall_s:.3f} s wall, device busy {report['pass']['device_busy_s']:.3f} s",
+          file=sys.stderr)
+    for name, ms in report["pass"]["device_ms_by_kernel"].items():
+        print(f"  {ms:9.3f} ms  {name[:100]}", file=sys.stderr)
+    return report
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAILED: needs CUDA", file=sys.stderr)
+        return 2
+    modes = {"visual": visual, "transcription": transcription}
+    mode = sys.argv[1] if len(sys.argv) > 1 else "visual"
+    if mode not in modes:
+        print(f"FAILED: unknown mode {mode!r} (visual or transcription)",
+              file=sys.stderr)
+        return 2
+    print(json.dumps(modes[mode](chip_smoke.nvidia_smi_line())))
     return 0
 
 
