@@ -6,7 +6,10 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    builds every kernel of the path from csrc/ (one nvcc per source, started
-   together) and prints the build time and ptxas' resource report;
+   together) and prints the build time and ptxas' resource report; counts
+   the HGMMA (wgmma) and UTMALDG (TMA load) instructions in K3's library
+   (cuobjdump --dump-sass) and fails if either is 0, or if ptxas reports a
+   spill in K3's bf16 kernel;
 2. K1 scene-diff kernel against its plain PyTorch version on the card, at the
    main path's chain shape [257, 46080] and a ragged one (odd N, D not a
    multiple of 4): max abs error <= 1e-6, then kernel / plain / library time
@@ -18,9 +21,13 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    [2, 4, 200, 64] f32, MiniLM's [2, 12, 512, 32] bf16 with lengths
    [512, 130], and rows of length 0 (zeros, no NaN). fp32: 2e-5 absolute;
    bf16: 1 bf16 ulp of the plain version (fp32 from the same bf16 inputs,
-   rounded once) plus 2^-16 * sum_j p_j |v_j|, since the kernel splits P into
-   two bf16 terms (csrc/flash_attention.cu). Then kernel / plain / bound /
-   scaled_dot_product_attention times at the encoder's shape;
+   rounded once) plus 2^-8 * sum_j p_j |v_j|, since the kernel rounds P to
+   bf16 once before P V (csrc/flash_attention.cu). Then kernel / plain /
+   bound / scaled_dot_product_attention times at the encoder's shape, and
+   kernel / bound / scaled_dot_product_attention (with a key mask) at
+   MiniLM's, there both over back-to-back calls and replayed from a CUDA
+   graph (device time without the host's), each with the kernel's share of
+   its bound and its ratio to the library time;
 4. the visual slice: InferenceEngine(device="cuda").run_task("visual_analysis")
    with scenes + YOLOv8n (full published width, random weights from seed 0,
    bf16) over a 60 s 1280x720 30 fps clip with planted colour cuts. The
@@ -57,6 +64,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -77,6 +85,7 @@ CUT_EVERY_S = 10  # 6 colour segments -> 5 planted cuts
 VISUAL_KERNELS = ("scene_diff", "nms")  # K1, K2: the visual pass's kernels
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 K3_SHAPE = (4, 20, 1500, 64)  # Whisper large-v3 encoder, batch 4
+K3_MINILM = ((2, 12, 512, 32), (512, 130))  # MiniLM's route: shape, lengths
 K3_CASES = (  # shape, dtype name, causal, lengths
     (K3_SHAPE, "bfloat16", False, None),
     (K3_SHAPE, "float32", False, None),
@@ -124,6 +133,46 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5, args=((),)) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _hopper_spills(ptxas_log: str) -> list[str]:
+    """ptxas' spill lines for K3's bf16 (Hopper) kernels that spill."""
+    bad, in_hopper = [], False
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            in_hopper = "flash_bf16_hopper" in line
+        elif in_hopper and "spill stores" in line:
+            stores, loads = (int(x) for x in re.findall(r"(\d+) bytes spill", line))
+            if stores or loads:
+                bad.append(line.strip())
+    return bad
+
+
+def cuda_graph_ms(fn, args, iters: int = 20, replays: int = 10) -> float:
+    """Mean device time of fn(*a) with the host taken out: `iters` calls,
+    cycling through `args`, captured once in a CUDA graph and replayed."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for a in args:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(iters):
+            fn(*args[i % len(args)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def phase_build() -> dict:
     from eioku_tpu_torch.ops import _cuda
 
@@ -133,10 +182,25 @@ def phase_build() -> dict:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s wall ({each or 'up to date'})")
     for name, b in built.items():
         for line in b["log"].splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line) \
+                    or "spill stores" in line:
                 log(f"  {name}: {line.strip()}")
     for name in _cuda.KERNELS:
         _cuda.load(name)
+    if "flash_attention" in built:
+        spills = _hopper_spills(built["flash_attention"]["log"])
+        if spills:
+            raise AssertionError(f"K3's bf16 kernel spills: {spills}")
+        log("K3 bf16 kernels: no spills in ptxas' report")
+    else:
+        log("K3 was built before this run: its ptxas report is not checked")
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", _cuda._lib_path("flash_attention")],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    log(f"K3 SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG instructions")
+    if not all(counts.values()):
+        raise AssertionError(f"K3 has no wgmma or no TMA load in its SASS: {counts}")
     return built
 
 
@@ -253,7 +317,7 @@ def bf16_ulp(x):
 
 
 def k3_error(got, want, cancel) -> float:
-    """fp32: max abs error. bf16: the largest (error - 1 ulp - 2^-16 *
+    """fp32: max abs error. bf16: the largest (error - 1 ulp - 2^-8 *
     sum_j p_j |v_j|) over elements, <= 0 when within tolerance."""
     import torch
 
@@ -263,7 +327,7 @@ def k3_error(got, want, cancel) -> float:
     if got.dtype == torch.float32:
         return float(diff.max())
     ulp = bf16_ulp(got.float().abs().maximum(want.float().abs()))
-    return float((diff - ulp - 2.0 ** -16 * cancel).max())
+    return float((diff - ulp - 2.0 ** -8 * cancel).max())
 
 
 def phase_k3(dev) -> dict:
@@ -297,7 +361,7 @@ def phase_k3(dev) -> dict:
         tol = 2e-5 if dtype == torch.float32 else 0.0
         log(f"K3 flash_attention {list(shape)} {dtype_name} causal={causal} "
             f"lengths={lengths}: max abs err {max_abs:.3e}"
-            + ("" if dtype == torch.float32 else f", excess over 1 ulp + 2^-16 "
+            + ("" if dtype == torch.float32 else f", excess over 1 ulp + 2^-8 "
                f"sum p|v| {err:.3e}"))
         if not err <= tol:
             raise AssertionError(f"K3 disagrees with its plain version at {shape} "
@@ -321,10 +385,45 @@ def phase_k3(dev) -> dict:
     result.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": library_ms})
-    log(f"K3 {list(K3_SHAPE)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-        f"{result['bound_ms']:.4f} ms ({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"K3 {list(K3_SHAPE)} bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"scaled_dot_product_attention {library_ms:.5f} ms, bound "
+        f"{result['bound_ms']:.5f} ms ({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+        f"{result['bound_ms'] / ms:.1%} of the bound, {ms / library_ms:.3f}x the "
+        f"library time")
+    phase_k3_minilm(dev)
     return result
+
+
+def phase_k3_minilm(dev) -> None:
+    """K3 at MiniLM's route, [2, 12, 512, 32] bf16 with lengths [512, 130],
+    against scaled_dot_product_attention with the same key mask. The bound
+    counts what these lengths need: keys and values up to each length."""
+    import torch
+    import torch.nn.functional as F
+
+    from eioku_tpu_torch.ops.flash_attention import flash_attention
+
+    (b, h, s_len, d), lengths = K3_MINILM
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s_len, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    sets = [tuple(torch.randn((b, h, s_len, d), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(3)) for _ in range(4)]
+    kernel = lambda q, k, v: flash_attention(q, k, v, lengths=lens)  # noqa: E731
+    library = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, scale=d ** -0.5)
+    keys = sum(lengths)
+    ops = 4 * h * s_len * keys * d
+    nbytes = 2 * (2 * b * h * s_len * d + 2 * h * keys * d)  # q, o; k, v to each length
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    # back-to-back calls (what an eager caller waits for; the host's share
+    # shows at this size), then device time from a replayed CUDA graph
+    for how, timer in (("calls", cuda_ms), ("graph", cuda_graph_ms)):
+        ms, library_ms = timer(kernel, args=sets), timer(library, args=sets)
+        log(f"K3 MiniLM {[b, h, s_len, d]} bf16 lengths {list(lengths)} ({how}): kernel "
+            f"{ms:.5f} ms, scaled_dot_product_attention (key mask) {library_ms:.5f} ms, "
+            f"bound {bound_ms:.5f} ms ({ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); "
+            f"{bound_ms / ms:.1%} of the bound, {ms / library_ms:.3f}x the library time")
 
 
 def write_clip(path: str) -> int:

@@ -28,6 +28,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNELS = ("scene_diff", "nms", "flash_attention")
 # nms.cu must round its IoU exactly like the reference: no contracted FMAs
 _EXTRA_FLAGS = {"nms": ("-fmad=false",)}
+# flash_attention.cu encodes TMA tensor maps with the driver API
+# (cuTensorMapEncodeTiled): it links libcuda (the toolkit's stub at build time)
+_DRIVER_LIBS = {"flash_attention"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -85,6 +88,7 @@ def build(names=KERNELS) -> dict[str, dict]:
         return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
+    stubs = os.path.join(os.path.dirname(os.path.dirname(nvcc)), "lib64", "stubs")
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
@@ -93,6 +97,8 @@ def build(names=KERNELS) -> dict[str, dict]:
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                *_EXTRA_FLAGS.get(name, ()), "-o", tmp,
                os.path.join(CSRC_DIR, f"{name}.cu")]
+        if name in _DRIVER_LIBS:
+            cmd += [f"-L{stubs}", "-lcuda"]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out, failed = {}, []

@@ -53,11 +53,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """t itself when the kernel can read it through its strides, else a
-    dense copy: D must be dense, and for 16-byte vector loads every row
-    start 16-byte aligned."""
+    dense copy: D must be dense and, for bf16, the TMA's tensor maps need a
+    16-byte aligned base and strides of whole 16 bytes, none 0 (an expanded
+    view) where the extent is above 1."""
     align = 8 if t.dtype == torch.bfloat16 else 1
-    ok = (t.stride(3) == 1 and all(s % align == 0 for s in t.stride()[:3])
-          and t.data_ptr() % 16 == 0)
+    ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+          and all(s % align == 0 and (s > 0 or n == 1)
+                  for s, n in zip(t.stride()[:3], t.shape[:3])))
     return t if ok else t.contiguous()
 
 

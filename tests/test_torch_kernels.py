@@ -94,16 +94,40 @@ def _assert_flash_close(got, want, cancel):
     """fp32: 2e-5 absolute (fp32 FMAs in another order: the Pallas kernel's
     own tolerance). bf16: within 1 bf16 ulp of the plain version, which
     computes in fp32 from the same bf16 inputs and rounds once, plus
-    2^-16 * sum_j p_j |v_j| (`cancel`): the kernel splits P into two bf16
-    terms (16 significant bits) and accumulates in another order, which
-    shows where the output cancels to near zero."""
+    2^-8 * sum_j p_j |v_j| (`cancel`). The kernel rounds P to bf16 once
+    before P V, a relative error of at most 2^-9 in each p, so the weighted
+    sum moves by at most 2^-9 * sum_j p_j |v_j| (with l summed from the
+    unrounded p); the bound doubles that for the order of the fp32 sums and
+    the exp2 approximation. It shows only where the output cancels to near
+    zero; elsewhere the 1 ulp dominates."""
     if got.dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
         return
     diff = (got.float() - want.float()).abs()
     ulp = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
-    excess = diff - ulp - 2.0 ** -16 * cancel
+    excess = diff - ulp - 2.0 ** -8 * cancel
     assert bool((excess <= 0).all()), float(excess.max())
+
+
+def _check_flash(shape, dtype, causal, lengths, device, seed=None):
+    from eioku_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    q, k, v = _qkv(shape, dtype, device, seed=shape[2] if seed is None else seed)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32,
+                                                     device=device)
+    got = flash_attention(q, k, v, lengths=lens, causal=causal)
+    want = flash_attention_plain(q, k, v, lengths=lens, causal=causal)
+    cancel = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                   lengths=lens, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    if lengths is not None and lengths[0] == 0:
+        assert not bool(got[0].any())  # no valid key: zeros, not NaN
+    _assert_flash_close(got, want, cancel)
 
 
 # the Whisper large-v3 encoder's shape (bf16 on the path, f32 with
@@ -118,37 +142,43 @@ def _assert_flash_close(got, want, cancel):
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, causal,
                                               lengths):
-    from eioku_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_plain,
-    )
-
-    q, k, v = _qkv(shape, dtype, cuda_device, seed=shape[2])
-    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32,
-                                                     device=cuda_device)
-    got = flash_attention(q, k, v, lengths=lens, causal=causal)
-    want = flash_attention_plain(q, k, v, lengths=lens, causal=causal)
-    cancel = flash_attention_plain(q.float(), k.float(), v.float().abs(),
-                                   lengths=lens, causal=causal)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape and got.dtype == dtype
-    assert bool(torch.isfinite(got).all())
-    if lengths is not None and lengths[0] == 0:
-        assert not bool(got[0].any())  # no valid key: zeros, not NaN
-    _assert_flash_close(got, want, cancel)
+    _check_flash(shape, dtype, causal, lengths, cuda_device)
 
 
-def test_flash_attention_kernel_reads_strided_heads(cuda_device):
+# the bf16 kernel's edges: one key, exactly one 128-key tile, one key past
+# it, a ragged tail (TMA zero fill), at both head dims
+@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("s", [1, 128, 129, 300])
+def test_flash_attention_bf16_kernel_sequence_edges(cuda_device, s, d):
+    _check_flash((2, 3, s, d), torch.bfloat16, False, None, cuda_device)
+
+
+# lengths around a KV tile boundary; batch row 1 has no valid key
+@pytest.mark.parametrize("length", [127, 128, 129])
+def test_flash_attention_bf16_kernel_lengths_at_a_tile_boundary(cuda_device, length):
+    _check_flash((2, 2, 300, 64), torch.bfloat16, False, [length, 0], cuda_device)
+    _check_flash((2, 2, 300, 64), torch.bfloat16, False, [0, length], cuda_device)
+
+
+def test_flash_attention_bf16_kernel_causal(cuda_device):
+    # 300 rows: two query tiles, the diagonal inside both, a ragged key tile
+    _check_flash((2, 4, 300, 64), torch.bfloat16, True, None, cuda_device)
+
+
+@pytest.mark.parametrize("d", [64, 32])
+def test_flash_attention_kernel_reads_strided_heads(cuda_device, d):
     # the encoder's layout: [B, S, H, D] projections viewed as [B, H, S, D]
+    # (the tensor maps step S by H * D); equal bit for bit to dense inputs
     from eioku_tpu_torch.ops.flash_attention import flash_attention
 
-    b, s, h, d = 2, 300, 6, 64
+    b, s, h = 2, 300, 6
     q, k, v = (t.view(b, s, h, d).transpose(1, 2) for t in
                _qkv((b, s, h * d), torch.bfloat16, cuda_device, seed=3))
     got = flash_attention(q, k, v)
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    _check_flash((b, h, s, d), torch.bfloat16, False, None, cuda_device, seed=3)
 
 
 def test_flash_attention_kernel_refuses_other_inputs(cuda_device):

@@ -110,6 +110,18 @@ def test_flash_plain_reads_strided_heads_and_refuses_other_head_dims():
     assert flash_attention_plain(q, k, v, scale=0.1).shape == q.shape
 
 
+def test_flash_kernel_view_keeps_strided_heads_and_copies_what_tma_refuses():
+    from eioku_tpu_torch.ops.flash_attention import _kernel_view
+
+    bshd = torch.zeros((2, 10, 3, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert _kernel_view(bshd) is bshd  # the encoder's layout goes in as is
+    expanded = torch.zeros((1, 1, 10, 64), dtype=torch.bfloat16).expand(2, 3, 10, 64)
+    odd_rows = torch.zeros((2, 3, 10, 68), dtype=torch.bfloat16)[..., :64]
+    for t in (expanded, odd_rows):  # a 0 stride; rows not whole 16 bytes apart
+        view = _kernel_view(t)
+        assert view.is_contiguous() and torch.equal(view, t)
+
+
 # -- layers, tokenizer, mel -----------------------------------------------------------
 
 

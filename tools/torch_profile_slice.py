@@ -80,7 +80,7 @@ def _device_events(prof):
 
 def _category(name: str) -> str:
     low = name.lower()
-    if "flash_bf16_mma" in low or "flash_simt" in low:
+    if "flash_bf16_hopper" in low or "flash_simt" in low:
         return "K3 flash_attention"
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
                               "gemv", "kernel2", "conv")):
