@@ -9,13 +9,16 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    together) and prints the build time and ptxas' resource report; counts
    the HGMMA (wgmma) and UTMALDG (TMA load) instructions in K3's library
    (cuobjdump --dump-sass) and fails if either is 0, or if ptxas reports a
-   spill in K3's bf16 kernel;
+   spill in K3's bf16 kernel or in K2's two kernels (mask and scan);
 2. K1 scene-diff kernel against its plain PyTorch version on the card, at the
    main path's chain shape [257, 46080] and a ragged one (odd N, D not a
    multiple of 4): max abs error <= 1e-6, then kernel / plain / library time
    over four main-path chains cycled, so that L2 never holds the next input;
 3. K2 NMS keep-mask kernel against its plain version at B = 64,
    K in {256, 300, 512, 1024} with padding tails: keep masks exactly equal;
+   times over back-to-back calls at every K and, at K = 256 and 1024, also
+   replayed from a CUDA graph (the gap is the wrapper's host cost), beside
+   the launch floor: an empty kernel's graph-replayed time;
 3b. K3 flash-attention kernel against its plain version at the Whisper
    large-v3 encoder's [4, 20, 1500, 64] in bf16 and f32, causal
    [2, 4, 200, 64] f32, MiniLM's [2, 12, 512, 32] bf16 with lengths
@@ -32,7 +35,10 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    with scenes + YOLOv8n (full published width, random weights from seed 0,
    bf16) over a 60 s 1280x720 30 fps clip with planted colour cuts. The
    launch counts are zeroed just before the measured run and read just after;
-   both kernels must have launched. The scene count must equal the cuts + 1,
+   both kernels must have launched. The candidates that run hands to the
+   NMS (YOLOv8n's top 256 at 80 classes) are kept, and the kernel's keep
+   masks on them must equal the plain version's exactly; so on the
+   top_k = 1024 run below. The scene count must equal the cuts + 1,
    object rows must be finite, and the scene rows must equal those of the
    port's CPU path on the same clip; YOLOv8n fp32 logits on the card (TF32
    off) must agree with the CPU's on a small batch. A run of the
@@ -80,6 +86,7 @@ K1_TIMING_CHAINS = 4
 K2_BATCH = 64
 K2_KS = (256, 300, 512, 1024)
 K2_MAIN_K = 256  # detect()'s default top_k
+K2_BIG_K = 1024  # object_detection with top_k = 1024 (the K > max_det route)
 CLIP_W, CLIP_H, CLIP_FPS, CLIP_SECONDS = 1280, 720, 30, 60
 CUT_EVERY_S = 10  # 6 colour segments -> 5 planted cuts
 VISUAL_KERNELS = ("scene_diff", "nms")  # K1, K2: the visual pass's kernels
@@ -133,13 +140,13 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5, args=((),)) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _hopper_spills(ptxas_log: str) -> list[str]:
-    """ptxas' spill lines for K3's bf16 (Hopper) kernels that spill."""
-    bad, in_hopper = [], False
+def _spills(ptxas_log: str, entries: tuple[str, ...]) -> list[str]:
+    """ptxas' spill lines for the kernels named in `entries` that spill."""
+    bad, watched = [], False
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line:
-            in_hopper = "flash_bf16_hopper" in line
-        elif in_hopper and "spill stores" in line:
+            watched = any(e in line for e in entries)
+        elif watched and "spill stores" in line:
             stores, loads = (int(x) for x in re.findall(r"(\d+) bytes spill", line))
             if stores or loads:
                 bad.append(line.strip())
@@ -187,13 +194,16 @@ def phase_build() -> dict:
                 log(f"  {name}: {line.strip()}")
     for name in _cuda.KERNELS:
         _cuda.load(name)
-    if "flash_attention" in built:
-        spills = _hopper_spills(built["flash_attention"]["log"])
+    for name, label, entries in (
+            ("flash_attention", "K3's bf16 kernels", ("flash_bf16_hopper",)),
+            ("nms", "K2's kernels", ("nms_mask_kernel", "nms_scan_kernel"))):
+        if name not in built:
+            log(f"{label} were built before this run: their ptxas report is not checked")
+            continue
+        spills = _spills(built[name]["log"], entries)
         if spills:
-            raise AssertionError(f"K3's bf16 kernel spills: {spills}")
-        log("K3 bf16 kernels: no spills in ptxas' report")
-    else:
-        log("K3 was built before this run: its ptxas report is not checked")
+            raise AssertionError(f"{label} spill: {spills}")
+        log(f"{label}: no spills in ptxas' report")
     cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", _cuda._lib_path("flash_attention")],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -246,7 +256,7 @@ def phase_k1(dev) -> dict:
     return result
 
 
-def _nms_workload(b: int, k: int, seed: int, pad_from: int):
+def _nms_workload(b: int, k: int, seed: int, pad_from: int, n_classes: int = 3):
     """Score-sorted candidates as in tests/test_nms_kernel.py, with a tail of
     zero-score padding."""
     rng = np.random.default_rng(seed)
@@ -256,7 +266,7 @@ def _nms_workload(b: int, k: int, seed: int, pad_from: int):
     scores = np.sort(rng.uniform(0.1, 1.0, (b, k)).astype(np.float32),
                      axis=1)[:, ::-1].copy()
     scores[:, pad_from:] = 0.0
-    classes = rng.integers(0, 3, (b, k)).astype(np.int32)
+    classes = rng.integers(0, n_classes, (b, k)).astype(np.int32)
     return boxes, scores, classes
 
 
@@ -273,12 +283,29 @@ def _nms_pair_ops(keep: np.ndarray, scores: np.ndarray,
     return 14 * total
 
 
+def launch_floor_ms() -> float:
+    """Graph-replayed time of one empty kernel: the least a launch costs."""
+    import torch
+
+    from eioku_tpu_torch.ops import _cuda
+
+    lib = _cuda.load("nms")
+
+    def empty():
+        if lib.eioku_empty_launch(torch.cuda.current_stream().cuda_stream):
+            raise AssertionError("the empty kernel did not launch")
+    return cuda_graph_ms(empty, args=((),))
+
+
 def phase_k2(dev) -> dict:
     import torch
 
     from eioku_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
 
-    result = {}
+    floor_ms = launch_floor_ms()
+    log(f"launch floor: an empty kernel replayed from a CUDA graph takes "
+        f"{floor_ms:.5f} ms (K2 launches two kernels a call)")
+    result = {"launch_floor_ms": floor_ms}
     for k in K2_KS:
         bx, sc, cl = _nms_workload(K2_BATCH, k, seed=k, pad_from=k - k // 5)
         boxes = torch.from_numpy(bx).to(dev)
@@ -292,19 +319,24 @@ def phase_k2(dev) -> dict:
         if mismatches:
             raise AssertionError(f"K2 keep mask differs from its plain version "
                                  f"at K={k} in {mismatches} slots")
-        ms = cuda_ms(lambda: nms_keep_mask(boxes, scores, classes, 0.45))
+        kernel = lambda: nms_keep_mask(boxes, scores, classes, 0.45)  # noqa: E731
+        ms = cuda_ms(kernel)
+        graph_ms = cuda_graph_ms(kernel, args=((),)) if k in (K2_MAIN_K, K2_BIG_K) else None
         plain_ms = cuda_ms(lambda: nms_keep_mask_plain(boxes, scores, classes, 0.45),
                            iters=5, warmup=1)
         nbytes = K2_BATCH * k * (16 + 4 + 4 + 1)
         ops = _nms_pair_ops(want.cpu().numpy(), sc, cl)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        log(f"K2 [B={K2_BATCH}, K={k}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {max(t_bytes, t_ops):.5f} ms")
+        log(f"K2 [B={K2_BATCH}, K={k}]: kernel {ms:.5f} ms (calls)"
+            + ("" if graph_ms is None else f", {graph_ms:.5f} ms (graph)")
+            + f", plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms")
         if k == K2_MAIN_K:
-            result = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "library_ms": None}
+            result.update({"max_abs_err": 0.0, "ms": ms, "cuda_graph_ms": graph_ms,
+                           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                           "library_ms": None})
+        elif k == K2_BIG_K:
+            result.update({"ms_k1024": ms, "cuda_graph_ms_k1024": graph_ms})
     return result
 
 
@@ -463,10 +495,46 @@ def _check_object_rows(rows: list[dict]) -> None:
             raise AssertionError(f"non-finite object row {r}")
 
 
+def _capture_nms(postprocess) -> list:
+    """Wrap postprocess.nms_keep_mask so that each call appends its inputs
+    and the keep mask it returned; the caller puts the original back."""
+    calls, fn = [], postprocess.nms_keep_mask
+
+    def captured(boxes, scores, classes, iou_threshold=0.45):
+        keep = fn(boxes, scores, classes, iou_threshold)
+        calls.append((boxes, scores, classes, iou_threshold, keep))
+        return keep
+    postprocess.nms_keep_mask = captured
+    return calls
+
+
+def _check_captured_nms(calls: list, k: int, label: str) -> None:
+    """The kernel's keep masks on the candidates a run handed to the NMS
+    equal the plain version's on the same tensors, exactly."""
+    from eioku_tpu_torch.ops.nms import nms_keep_mask_plain
+
+    if not calls:
+        raise AssertionError(f"{label}: no NMS call was captured")
+    for boxes, scores, classes, thr, keep in calls:
+        if boxes.shape[1] != k or not boxes.is_cuda:
+            raise AssertionError(f"{label}: NMS got {tuple(boxes.shape)} on "
+                                 f"{boxes.device}, expected K = {k} on the card")
+        want = nms_keep_mask_plain(boxes, scores, classes, thr)
+        mismatches = int((keep != want).sum())
+        valid = scores > 0
+        log(f"{label}: NMS on the run's candidates [B={boxes.shape[0]}, K={k}]: "
+            f"{int(valid.sum())} valid, {int(want.sum())} kept, "
+            f"{int(classes[valid].unique().numel())} classes, {mismatches} mismatches")
+        if mismatches:
+            raise AssertionError(f"{label}: K2's keep mask differs from the plain "
+                                 f"version's on the run's candidates in {mismatches} slots")
+
+
 def phase_slice(dev, workdir: str) -> dict:
     import torch
 
     from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.models.yolo import postprocess
     from eioku_tpu_torch.ops import _cuda
 
     clip = os.path.join(workdir, "clip.mp4")
@@ -491,10 +559,28 @@ def phase_slice(dev, workdir: str) -> dict:
         return out, wall
 
     run(config, "warm-up")  # loads the model, initialises cuDNN
-    _cuda.reset_launch_counts()
-    out, wall = run(config, "measured")
-    launches = _cuda.launch_counts()
-    log(f"launches in the measured run: {launches}")
+    nms_keep_mask = postprocess.nms_keep_mask
+    try:
+        calls = _capture_nms(postprocess)
+        _cuda.reset_launch_counts()
+        out, wall = run(config, "measured")
+        launches = _cuda.launch_counts()
+        log(f"launches in the measured run: {launches}")
+        _check_captured_nms(calls, K2_MAIN_K, "visual_analysis")
+
+        # the K > max_det NMS route, on the task that honours top_k (the
+        # combined pass, like the JAX package's, ignores it)
+        calls = _capture_nms(postprocess)
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        big = engine.run_task("object_detection", clip,
+                              {"batch_size": 64, "top_k": K2_BIG_K})
+        torch.cuda.synchronize()
+        big_s = time.perf_counter() - t
+        big_launches = _cuda.launch_counts()["nms"]
+        _check_captured_nms(calls, K2_BIG_K, f"object_detection top_k={K2_BIG_K}")
+    finally:
+        postprocess.nms_keep_mask = nms_keep_mask
     for name in VISUAL_KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"the visual pass never launched {name}")
@@ -502,18 +588,10 @@ def phase_slice(dev, workdir: str) -> dict:
         raise AssertionError(f"expected {cuts + 1} scenes, got "
                              f"{out['scene_detection']}")
     _check_object_rows(out["object_detection"])
-
-    # the K > max_det NMS route, on the task that honours top_k (the
-    # combined pass, like the JAX package's, ignores it)
-    _cuda.reset_launch_counts()
-    t = time.perf_counter()
-    big = engine.run_task("object_detection", clip, {"batch_size": 64, "top_k": 1024})
-    torch.cuda.synchronize()
-    if _cuda.launch_counts()["nms"] < 1:
+    if big_launches < 1:
         raise AssertionError("the top_k=1024 route never launched the NMS kernel")
     _check_object_rows(big)
-    log(f"object_detection top_k=1024: {time.perf_counter() - t:.3f} s, "
-        f"{len(big)} rows")
+    log(f"object_detection top_k={K2_BIG_K}: {big_s:.3f} s, {len(big)} rows")
 
     # reference: the port's CPU path (plain versions) gives the same scenes
     cpu_scenes = InferenceEngine(device="cpu").run_task(

@@ -122,9 +122,11 @@ def _configure(lib: ctypes.CDLL) -> None:
         lib.eioku_scene_diff.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, vp]
         lib.eioku_scene_diff.restype = ctypes.c_int
     if hasattr(lib, "eioku_nms_keep"):
-        lib.eioku_nms_keep.argtypes = [vp, vp, vp, vp, ctypes.c_int,
+        lib.eioku_nms_keep.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_float, vp]
         lib.eioku_nms_keep.restype = ctypes.c_int
+        lib.eioku_empty_launch.argtypes = [vp]
+        lib.eioku_empty_launch.restype = ctypes.c_int
     if hasattr(lib, "eioku_flash_attention"):
         i32 = ctypes.c_int
         lib.eioku_flash_attention.argtypes = [

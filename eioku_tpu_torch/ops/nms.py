@@ -2,7 +2,8 @@
 
 Port of eioku_tpu/ops/nms.py. On a CUDA tensor `nms_keep_mask` launches the
 hand-written kernel csrc/nms.cu (it replaces the Pallas `_nms_kernel` and
-serves every K, so detect() has one NMS for both of its routes); on a CPU
+serves every K up to MAX_CANDIDATES, so detect() has one NMS for both of its
+routes: a suppression bitmask, then a one-warp scan word by word); on a CPU
 tensor it runs `nms_keep_mask_plain`, which mirrors the JAX package's Jacobi
 fixpoint (`nms_fixed`, `_reference_keep`): keep = valid and no kept
 higher-ranked same-class box has IoU > threshold, iterated from `valid` until
@@ -13,6 +14,9 @@ from __future__ import annotations
 import torch
 
 from eioku_tpu_torch.ops import _cuda
+
+MAX_CANDIDATES = 10_240  # csrc/nms.cu kMaxK: five removed words per scan lane
+_WORD = 64  # ranks per bitmask word
 
 
 def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
@@ -70,14 +74,26 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
         raise ValueError(f"unsupported device {boxes.device}")
     if scores.device != boxes.device or classes.device != boxes.device:
         raise ValueError("boxes, scores and classes must be on one device")
-    boxes = boxes.to(torch.float32).contiguous()
+    if k > MAX_CANDIDATES:
+        raise ValueError(f"the nms kernel takes at most {MAX_CANDIDATES} "
+                         f"candidates per image, got K={k}")
+    # convert only where needed: a no-op conversion still costs ~2 us of
+    # host time a call, and the wrapper's host time exceeds the kernel's
+    if boxes.dtype != torch.float32 or not boxes.is_contiguous():
+        boxes = boxes.to(torch.float32).contiguous()
     if boxes.data_ptr() % 16:  # the kernel reads boxes as float4
         boxes = boxes.clone()
-    scores = scores.to(torch.float32).contiguous()
-    classes = classes.to(torch.int32).contiguous()
+    if scores.dtype != torch.float32 or not scores.is_contiguous():
+        scores = scores.to(torch.float32).contiguous()
+    if classes.dtype != torch.int32 or not classes.is_contiguous():
+        classes = classes.to(torch.int32).contiguous()
     keep = torch.empty((b, k), dtype=torch.uint8, device=boxes.device)
+    # the kernel's bitmask (W words of 64 W rows per image) and validity words
+    words = -(-k // _WORD)
+    scratch = torch.empty(b * words * (_WORD * words + 1), dtype=torch.int64,
+                          device=boxes.device)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     _cuda.launch("nms", "eioku_nms_keep", boxes.data_ptr(), scores.data_ptr(),
-                 classes.data_ptr(), keep.data_ptr(), b, k,
+                 classes.data_ptr(), keep.data_ptr(), scratch.data_ptr(), b, k,
                  float(iou_threshold), stream)
     return keep.view(torch.bool)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from eioku_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+from eioku_tpu_torch.ops.nms import MAX_CANDIDATES, nms_keep_mask, nms_keep_mask_plain
 from eioku_tpu_torch.ops.scene_diff import pair_diff, pair_diff_plain
 
 pytestmark = pytest.mark.cuda
@@ -25,7 +25,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _nms_workload(b, k, seed, pad_from):
+def _nms_workload(b, k, seed, pad_from, n_classes=3):
     """Dense overlapping candidates as in tests/test_nms_kernel.py, sorted
     by score, with a zero-score padding tail."""
     rng = np.random.default_rng(seed)
@@ -35,8 +35,18 @@ def _nms_workload(b, k, seed, pad_from):
     scores = np.sort(rng.uniform(0.1, 1.0, (b, k)).astype(np.float32),
                      axis=1)[:, ::-1].copy()
     scores[:, pad_from:] = 0.0
-    classes = rng.integers(0, 3, (b, k)).astype(np.int32)
+    classes = rng.integers(0, n_classes, (b, k)).astype(np.int32)
     return boxes, scores, classes
+
+
+def _assert_nms_equals_plain(boxes, scores, classes, device):
+    boxes, scores, classes = (torch.from_numpy(a).to(device)
+                              for a in (boxes, scores, classes))
+    got = nms_keep_mask(boxes, scores, classes, 0.45)
+    want = nms_keep_mask_plain(boxes, scores, classes, 0.45)
+    # a discrete output: exactly equal
+    assert torch.equal(got, want)
+    assert not (got & (scores <= 0)).any()
 
 
 # the main path's chunk [SCENE_CHUNK + 1, 96*160*3], a ragged shape (odd N,
@@ -62,6 +72,57 @@ def test_nms_kernel_equals_plain(cuda_device, k):
     assert not got[:, k - k // 5:].any()
 
 
+# the bitmask's word edges (one rank, one short of a word, one past it),
+# 8,400 candidates (every anchor of a 640 x 640 input), the kernel's limit
+# and the main path's 80 classes
+@pytest.mark.parametrize("b,k,n_classes", [(2, 1, 3), (2, 63, 3), (2, 65, 3),
+                                           (2, 8400, 3), (1, MAX_CANDIDATES, 3),
+                                           (64, 256, 80), (4, 1024, 80)])
+def test_nms_kernel_equals_plain_at_word_edges(cuda_device, b, k, n_classes):
+    _assert_nms_equals_plain(*_nms_workload(b, k, seed=k, pad_from=k - k // 5,
+                                            n_classes=n_classes), cuda_device)
+
+
+def test_nms_kernel_keeps_nothing_of_all_padding(cuda_device):
+    boxes, _, classes = _nms_workload(2, 300, seed=5, pad_from=0)
+    _assert_nms_equals_plain(boxes, np.zeros((2, 300), np.float32), classes,
+                             cuda_device)
+
+
+def test_nms_kernel_on_zero_area_and_inverted_boxes(cuda_device):
+    boxes, scores, classes = _nms_workload(2, 150, seed=9, pad_from=140)
+    boxes[:, 0::5, 2] = boxes[:, 0::5, 0]  # zero width
+    boxes[:, 1::5, 3] = boxes[:, 1::5, 1]  # zero height
+    boxes[:, 2::5] = boxes[:, 2::5][..., [2, 3, 0, 1]]  # inverted
+    _assert_nms_equals_plain(boxes, scores, classes, cuda_device)
+
+
+def test_nms_kernel_keeps_one_of_identical_boxes(cuda_device):
+    # one box 300 times: per image and class only the first survives
+    boxes = np.tile(np.float32([10, 20, 50, 60]), (2, 300, 1))
+    scores = np.linspace(1.0, 0.1, 300, dtype=np.float32)[None].repeat(2, 0)
+    classes = np.zeros((2, 300), np.int32)
+    classes[1] = np.arange(300) % 2
+    _assert_nms_equals_plain(boxes, scores, classes, cuda_device)
+
+
+def test_nms_kernel_decides_ious_at_the_threshold(cuda_device):
+    # A = [0, 0, W, 1], B = [0, 0, w, 1]: IoU = w / W within 4 ulps of 0.45,
+    # inside the band where the kernel's suppression test divides
+    n = 256
+    big = np.float32(1) + np.arange(n, dtype=np.float32) * np.float32(2.0 ** -8)
+    small = big * np.float32(0.45)
+    for i, steps in enumerate(np.arange(n) % 9 - 4):
+        for _ in range(abs(steps)):
+            small[i] = np.nextafter(small[i], np.float32(np.inf if steps > 0 else 0))
+    boxes = np.zeros((1, 2 * n, 4), np.float32)
+    boxes[0, :, 3] = 1
+    boxes[0, 0::2, 2], boxes[0, 1::2, 2] = big, small
+    scores = np.linspace(1.0, 0.1, 2 * n, dtype=np.float32)[None]
+    classes = (np.arange(2 * n) // 2).astype(np.int32)[None]
+    _assert_nms_equals_plain(boxes, scores, classes, cuda_device)
+
+
 def test_nms_wrapper_rejects_inputs_on_two_devices(cuda_device):
     boxes, scores, classes = (torch.from_numpy(a) for a in
                               _nms_workload(2, 16, seed=0, pad_from=16))
@@ -70,11 +131,13 @@ def test_nms_wrapper_rejects_inputs_on_two_devices(cuda_device):
 
 
 def test_nms_kernel_rejects_a_pool_beyond_shared_memory(cuda_device):
-    k = 10_000  # 25 B per candidate exceeds the 227 KB a block can have
+    # one past the kernel's limit: the scan's two staged bitmask tiles and
+    # five removed words per lane cover 10,240 candidates
+    k = MAX_CANDIDATES + 1
     boxes = torch.zeros((1, k, 4), device=cuda_device)
     scores = torch.ones((1, k), device=cuda_device)
     classes = torch.zeros((1, k), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(RuntimeError, match="nms"):
+    with pytest.raises(ValueError, match="nms"):
         nms_keep_mask(boxes, scores, classes, 0.45)
 
 

@@ -77,7 +77,8 @@ def build(out_dir: str) -> dict[str, str]:
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        spills[name] = "; ".join(chip_smoke._hopper_spills(log)) or "none"
+        spills[name] = "; ".join(
+            chip_smoke._spills(log, ("flash_bf16_hopper",))) or "none"
     return spills
 
 

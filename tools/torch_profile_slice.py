@@ -10,7 +10,9 @@ random weights). On the card it measures:
    decode threads) with no consumer -- the host decode floor;
 2. the pass: one warm-up run, then one run under torch.profiler: wall time,
    device busy time (union of the kernels' intervals), the device's idle
-   share of the wall, and device time by kernel name.
+   share of the wall, and device time by kernel name and by category (K1
+   scene_diff, K2 nms, matrix products, copies, the rest), so that K1's and
+   K2's device time inside the pass shows.
 
 transcription uses chip_smoke.py's 150 s wav (4 voiced 30 s windows) and
 its full-width config (Whisper large-v3, random weights, bf16, batch 4, 224
@@ -82,6 +84,10 @@ def _category(name: str) -> str:
     low = name.lower()
     if "flash_bf16_hopper" in low or "flash_simt" in low:
         return "K3 flash_attention"
+    if "nms_mask_kernel" in low or "nms_scan_kernel" in low:
+        return "K2 nms"
+    if "pair_abs_diff_kernel" in low:
+        return "K1 scene_diff"
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
                               "gemv", "kernel2", "conv")):
         return "matmul"
@@ -216,6 +222,8 @@ def visual(card: str) -> dict:
     print(f"decode only: {decode_s:.3f} s for {frames} sampled frames; pass: "
           f"{wall_s:.3f} s wall, device busy {report['pass']['device_busy_s']:.3f} s",
           file=sys.stderr)
+    for cat, ms in report["pass"]["device_ms_by_category"].items():
+        print(f"  {ms:9.3f} ms  [{cat}]", file=sys.stderr)
     for name, ms in report["pass"]["device_ms_by_kernel"].items():
         print(f"  {ms:9.3f} ms  {name[:100]}", file=sys.stderr)
     return report
