@@ -31,18 +31,30 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    MiniLM's, there both over back-to-back calls and replayed from a CUDA
    graph (device time without the host's), each with the kernel's share of
    its bound and its ratio to the library time;
-4. the visual slice: InferenceEngine(device="cuda").run_task("visual_analysis")
-   with scenes + YOLOv8n (full published width, random weights from seed 0,
-   bf16) over a 60 s 1280x720 30 fps clip with planted colour cuts. The
-   launch counts are zeroed just before the measured run and read just after;
-   both kernels must have launched. The candidates that run hands to the
-   NMS (YOLOv8n's top 256 at 80 classes) are kept, and the kernel's keep
-   masks on them must equal the plain version's exactly; so on the
-   top_k = 1024 run below. The scene count must equal the cuts + 1,
-   object rows must be finite, and the scene rows must equal those of the
-   port's CPU path on the same clip; YOLOv8n fp32 logits on the card (TF32
-   off) must agree with the CPU's on a small batch. A run of the
-   object_detection task takes top_k = 1024 (the K > max_det NMS route);
+4. the visual pass: InferenceEngine(device="cuda").run_task("visual_analysis")
+   with all four sub-tasks at their defaults -- scenes, YOLOv8n objects,
+   yolov8n-face faces (threshold FACE_CONF, embeddings on: ArcFace
+   iresnet18) and ResNet18-Places365 places (top 5) -- at full published
+   widths (random weights from seed 0; detectors and ResNet18 in bf16,
+   ArcFace in fp32) over a 60 s 1280x720 30 fps clip with planted colour
+   cuts. With scenes at 4 fps the base step is 8 frames: objects and places
+   land on step 32 (places fuse into the object upload), faces on step 88,
+   which 32 does not divide, so faces take their own consumer. The launch
+   counts are zeroed just before the measured run and read just after; K1
+   and K2 must have launched, K2 once per detect batch (objects + faces).
+   The candidates that run hands to the NMS (YOLOv8n's top 256 at 80
+   classes; yolov8n-face's top 256 at one class) are kept, and the kernel's
+   keep masks on them must equal the plain version's exactly; so on the
+   top_k = 1024 run below. The scene count must equal the cuts + 1, object
+   and face rows must be finite, face rows more than 0, embeddings unit
+   norm, place rows one per object-grid frame with 5 predictions each, and
+   the scene rows must equal those of the port's CPU path on the same clip.
+   A second run takes the fully fused route (faces every 96 frames ride the
+   object upload as a device-side gather). face_detection and
+   place_classification run as tasks of their own. YOLOv8n, ResNet18 and
+   ArcFace fp32 outputs on the card (TF32 off) must agree with the CPU's on
+   a small batch. A run of the object_detection task takes top_k = 1024
+   (the K > max_det NMS route);
 4b. transcription at full width: a 150 s 16 kHz wav of five 30 s windows,
    window 2 digitally silent (the energy VAD drops it: 4 windows, one
    batch), through run_task("transcription") with Whisper large-v3 (random
@@ -90,6 +102,20 @@ K2_BIG_K = 1024  # object_detection with top_k = 1024 (the K > max_det route)
 CLIP_W, CLIP_H, CLIP_FPS, CLIP_SECONDS = 1280, 720, 30, 60
 CUT_EVERY_S = 10  # 6 colour segments -> 5 planted cuts
 VISUAL_KERNELS = ("scene_diff", "nms")  # K1, K2: the visual pass's kernels
+# random yolov8n-face weights score every anchor near 0.5: at the default
+# 0.7 no face row appears, at 0.2 every anchor is a candidate (the dense
+# one-class case of K2)
+FACE_CONF = 0.2
+VISUAL_CONFIG = {"scene_detection": {}, "object_detection": {"batch_size": 64},
+                 "face_detection": {"embeddings": True, "confidence_threshold": FACE_CONF},
+                 "place_classification": {}}
+# faces every 3.2 s: step 96 at 30 fps, a multiple of the object step 32
+FUSED_CONFIG = {**VISUAL_CONFIG, "face_detection": {
+    **VISUAL_CONFIG["face_detection"], "frame_interval_s": 3.2}}
+# embeddings are rounded to 5 places: each of 512 entries moves up to 5e-6,
+# so the norm of a unit vector moves up to sqrt(512) * 5e-6
+EMBED_NORM_TOL = 512 ** 0.5 * 5e-6
+MODEL_TOL = 1e-4  # fp32 card (TF32 off) vs CPU, relative to the largest |value|
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 K3_SHAPE = (4, 20, 1500, 64)  # Whisper large-v3 encoder, batch 4
 K3_MINILM = ((2, 12, 512, 32), (512, 130))  # MiniLM's route: shape, lengths
@@ -487,12 +513,44 @@ def write_clip(path: str) -> int:
     return n_frames // seg - 1
 
 
-def _check_object_rows(rows: list[dict]) -> None:
+def _check_box_rows(rows: list[dict], label: str) -> None:
     for r in rows:
         p = r["payload"]
         vals = [p["confidence"], *p["bounding_box"].values()]
         if not all(math.isfinite(v) for v in vals):
-            raise AssertionError(f"non-finite object row {r}")
+            raise AssertionError(f"non-finite {label} row {r}")
+
+
+def _check_face_rows(rows: list[dict], label: str) -> None:
+    """More than 0 rows, finite, each with a cluster id and a unit-norm
+    512-d embedding (within the 5-place rounding)."""
+    if not rows:
+        raise AssertionError(f"{label}: no face rows at threshold {FACE_CONF}")
+    _check_box_rows(rows, f"{label} face")
+    worst = 0.0
+    for r in rows:
+        p = r["payload"]
+        emb = np.asarray(p.get("embedding", []), np.float64)
+        if emb.shape != (512,) or not p["cluster_id"]:
+            raise AssertionError(f"{label}: face row without embedding or cluster: {p}")
+        worst = max(worst, abs(float(np.linalg.norm(emb)) - 1.0))
+    if not worst <= EMBED_NORM_TOL:
+        raise AssertionError(f"{label}: an embedding's norm is off 1 by {worst}")
+    log(f"{label}: {len(rows)} face rows, "
+        f"{len({r['payload']['cluster_id'] for r in rows})} clusters, embeddings "
+        f"unit norm within {worst:.2e} (tolerance {EMBED_NORM_TOL:.2e})")
+
+
+def _check_place_rows(rows: list[dict], frames: int, label: str) -> None:
+    """One row per sampled frame, each with 5 finite predictions, highest
+    first."""
+    if len(rows) != frames:
+        raise AssertionError(f"{label}: {len(rows)} place rows for {frames} frames")
+    for r in rows:
+        conf = [p["confidence"] for p in r["payload"]["predictions"]]
+        if len(conf) != 5 or not all(math.isfinite(c) for c in conf) \
+                or conf != sorted(conf, reverse=True):
+            raise AssertionError(f"{label}: bad place row {r}")
 
 
 def _capture_nms(postprocess) -> list:
@@ -508,13 +566,15 @@ def _capture_nms(postprocess) -> list:
     return calls
 
 
-def _check_captured_nms(calls: list, k: int, label: str) -> None:
+def _check_captured_nms(calls: list, k: int, label: str) -> int:
     """The kernel's keep masks on the candidates a run handed to the NMS
-    equal the plain version's on the same tensors, exactly."""
+    equal the plain version's on the same tensors, exactly. Returns how many
+    calls had one class among their valid candidates (the face detector's)."""
     from eioku_tpu_torch.ops.nms import nms_keep_mask_plain
 
     if not calls:
         raise AssertionError(f"{label}: no NMS call was captured")
+    one_class = 0
     for boxes, scores, classes, thr, keep in calls:
         if boxes.shape[1] != k or not boxes.is_cuda:
             raise AssertionError(f"{label}: NMS got {tuple(boxes.shape)} on "
@@ -522,17 +582,48 @@ def _check_captured_nms(calls: list, k: int, label: str) -> None:
         want = nms_keep_mask_plain(boxes, scores, classes, thr)
         mismatches = int((keep != want).sum())
         valid = scores > 0
+        n_classes = int(classes[valid].unique().numel())
+        one_class += n_classes == 1
         log(f"{label}: NMS on the run's candidates [B={boxes.shape[0]}, K={k}]: "
             f"{int(valid.sum())} valid, {int(want.sum())} kept, "
-            f"{int(classes[valid].unique().numel())} classes, {mismatches} mismatches")
+            f"{n_classes} classes, {mismatches} mismatches")
         if mismatches:
             raise AssertionError(f"{label}: K2's keep mask differs from the plain "
                                  f"version's on the run's candidates in {mismatches} slots")
+    return one_class
+
+
+def _k2_on_captured(call) -> dict:
+    """K2's time on one captured call's candidates (calls and graph-replayed),
+    its plain version's, and the bound for what these candidates need."""
+    from eioku_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+
+    boxes, scores, classes, thr, keep = call
+    b, k = scores.shape
+    kernel = lambda: nms_keep_mask(boxes, scores, classes, thr)  # noqa: E731
+    ops = _nms_pair_ops(keep.cpu().numpy(), scores.cpu().numpy(), classes.cpu().numpy())
+    t_bytes = b * k * (16 + 4 + 4 + 1) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"batch": b, "k": k, "ms": cuda_ms(kernel),
+            "cuda_graph_ms": cuda_graph_ms(kernel, args=((),)),
+            "plain_ms": cuda_ms(lambda: nms_keep_mask_plain(boxes, scores, classes, thr),
+                                iters=5, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _grid_frames(seconds: float, sample_fps: float = 4.0) -> int:
+    """Frames of the clip on a consumer's grid, snapped to the scene base
+    step as the combined pass snaps it."""
+    base = max(int(round(CLIP_FPS / sample_fps)), 1)
+    step = max(int(round(CLIP_FPS * seconds / base)), 1) * base
+    return len(range(0, CLIP_SECONDS * CLIP_FPS, step))
 
 
 def phase_slice(dev, workdir: str) -> dict:
     import torch
 
+    from eioku_tpu_torch.ml import combined
     from eioku_tpu_torch.ml.engine import InferenceEngine
     from eioku_tpu_torch.models.yolo import postprocess
     from eioku_tpu_torch.ops import _cuda
@@ -543,55 +634,103 @@ def phase_slice(dev, workdir: str) -> dict:
     log(f"clip: {CLIP_W}x{CLIP_H} {CLIP_FPS} fps {CLIP_SECONDS} s, {cuts} cuts, "
         f"written in {time.perf_counter() - t0:.1f} s")
     engine = InferenceEngine(device="cuda")
-    config = {"scene_detection": {}, "object_detection": {"batch_size": 64}}
+    runs = {}
 
-    def run(cfg: dict, label: str) -> tuple[dict, float]:
+    def run(task: str, cfg: dict, label: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        out = engine.run_task("visual_analysis", clip, cfg)
+        out = engine.run_task(task, clip, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        log(f"slice {label}: {wall:.3f} s wall, {CLIP_SECONDS / wall:.2f} video-s/s, "
-            f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
-            f"{len(out['scene_detection'])} scenes, "
-            f"{len(out['object_detection'])} object rows")
-        return out, wall
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        counts = {k: len(v) for k, v in out.items()} if isinstance(out, dict) \
+            else {task: len(out)}
+        log(f"{label}: {wall:.3f} s wall, {CLIP_SECONDS / wall:.2f} video-s/s, "
+            f"peak {peak:.1f} MiB, rows {counts}")
+        runs[label] = {"wall_s": wall, "video_s_per_s": CLIP_SECONDS / wall,
+                       "peak_mib": peak, "rows": counts}
+        return out
 
-    run(config, "warm-up")  # loads the model, initialises cuDNN
+    run("visual_analysis", VISUAL_CONFIG, "visual warm-up")  # models, cuDNN
     nms_keep_mask = postprocess.nms_keep_mask
+    programs = {name: getattr(combined, name) for name in
+                ("_detect_places_i420", "_detect_places_faces_i420")}
     try:
+        routes = {name: _count_calls(combined, name) for name in programs}
         calls = _capture_nms(postprocess)
         _cuda.reset_launch_counts()
-        out, wall = run(config, "measured")
+        out = run("visual_analysis", VISUAL_CONFIG, "visual measured")
         launches = _cuda.launch_counts()
-        log(f"launches in the measured run: {launches}")
-        _check_captured_nms(calls, K2_MAIN_K, "visual_analysis")
+        log(f"launches in the measured run: {launches}; fused programs called: "
+            f"{ {k: len(v) for k, v in routes.items()} }")
+        if not routes["_detect_places_i420"] or routes["_detect_places_faces_i420"]:
+            raise AssertionError("the default run did not take the fused-places route "
+                                 "with its own face consumer")
+        if launches["nms"] != len(calls):
+            raise AssertionError(f"K2 launched {launches['nms']} times for "
+                                 f"{len(calls)} detect batches")
+        if _check_captured_nms(calls, K2_MAIN_K, "visual_analysis") < 1:
+            raise AssertionError("no one-class (face) NMS call in the measured run")
+        face_call = next(c for c in calls if int(c[2][c[1] > 0].unique().numel()) == 1)
+        object_call = next(c for c in calls if c is not face_call)
+        k2_faces = _k2_on_captured(face_call)
+        k2_objects = _k2_on_captured(object_call)
+        for name, r in (("face", k2_faces), ("object", k2_objects)):
+            log(f"K2 on the run's {name} candidates [B={r['batch']}, K={r['k']}]: "
+                f"kernel {r['ms']:.5f} ms (calls), {r['cuda_graph_ms']:.5f} ms (graph), "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+
+        for v in routes.values():
+            v.clear()
+        calls = _capture_nms(postprocess)
+        _cuda.reset_launch_counts()
+        fused = run("visual_analysis", FUSED_CONFIG, "visual fully fused")
+        fused_launches = _cuda.launch_counts()
+        if not routes["_detect_places_faces_i420"]:
+            raise AssertionError("the fully fused route never ran")
+        if fused_launches["nms"] != len(calls) or \
+                _check_captured_nms(calls, K2_MAIN_K, "fully fused") < 1:
+            raise AssertionError("the fully fused run's NMS calls are off")
+
+        calls = _capture_nms(postprocess)
+        _cuda.reset_launch_counts()
+        faces = run("face_detection", {**VISUAL_CONFIG["face_detection"],
+                                       "batch_size": 64}, "face_detection task")
+        if _cuda.launch_counts()["nms"] < 1 or \
+                _check_captured_nms(calls, K2_MAIN_K, "face_detection task") < 1:
+            raise AssertionError("the face_detection task never launched K2 on faces")
+        places = run("place_classification", {}, "place_classification task")
 
         # the K > max_det NMS route, on the task that honours top_k (the
         # combined pass, like the JAX package's, ignores it)
         calls = _capture_nms(postprocess)
         _cuda.reset_launch_counts()
-        t = time.perf_counter()
-        big = engine.run_task("object_detection", clip,
-                              {"batch_size": 64, "top_k": K2_BIG_K})
-        torch.cuda.synchronize()
-        big_s = time.perf_counter() - t
+        big = run("object_detection", {"batch_size": 64, "top_k": K2_BIG_K},
+                  f"object_detection top_k={K2_BIG_K}")
         big_launches = _cuda.launch_counts()["nms"]
         _check_captured_nms(calls, K2_BIG_K, f"object_detection top_k={K2_BIG_K}")
     finally:
         postprocess.nms_keep_mask = nms_keep_mask
+        for name, fn in programs.items():
+            setattr(combined, name, fn)
     for name in VISUAL_KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"the visual pass never launched {name}")
-    if len(out["scene_detection"]) != cuts + 1:
-        raise AssertionError(f"expected {cuts + 1} scenes, got "
-                             f"{out['scene_detection']}")
-    _check_object_rows(out["object_detection"])
+    for label, res in (("measured", out), ("fully fused", fused)):
+        if len(res["scene_detection"]) != cuts + 1:
+            raise AssertionError(f"{label}: expected {cuts + 1} scenes, got "
+                                 f"{res['scene_detection']}")
+        _check_box_rows(res["object_detection"], f"{label} object")
+        _check_face_rows(res["face_detection"], f"visual {label}")
+        _check_place_rows(res["place_classification"], _grid_frames(1.0),
+                          f"visual {label}")
+    _check_face_rows(faces, "face_detection task")
+    _check_place_rows(places, CLIP_SECONDS, "place_classification task")
     if big_launches < 1:
         raise AssertionError("the top_k=1024 route never launched the NMS kernel")
-    _check_object_rows(big)
-    log(f"object_detection top_k={K2_BIG_K}: {big_s:.3f} s, {len(big)} rows")
+    _check_box_rows(big, "object")
 
     # reference: the port's CPU path (plain versions) gives the same scenes
     cpu_scenes = InferenceEngine(device="cpu").run_task(
@@ -600,34 +739,57 @@ def phase_slice(dev, workdir: str) -> dict:
         raise AssertionError(f"scene rows differ from the CPU path:\n"
                              f"{cpu_scenes}\n{out['scene_detection']}")
     log("scene rows equal the CPU path's")
-    return {"launches": launches, "wall_s": wall,
-            "video_s_per_s": CLIP_SECONDS / wall,
-            "scenes": len(out["scene_detection"]),
-            "object_rows": len(out["object_detection"])}
+    measured = runs["visual measured"]
+    return {"launches": launches, "wall_s": measured["wall_s"],
+            "video_s_per_s": measured["video_s_per_s"], "peak_mib": measured["peak_mib"],
+            "rows": measured["rows"], "runs": runs,
+            "nms_launches_per_run": {"visual measured": launches["nms"],
+                                     "visual fully fused": fused_launches["nms"]},
+            "k2_faces": k2_faces, "k2_objects": k2_objects}
+
+
+def _card_vs_cpu(name: str, model, x) -> None:
+    """model (fp32, on the CPU) on x, on the CPU and on the card (TF32 off):
+    each output within MODEL_TOL of the CPU's, relative to its largest
+    |value|."""
+    import torch
+
+    with torch.no_grad():
+        ref = model(x)
+        got = model.to("cuda")(x.to("cuda"))
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    gots = got if isinstance(got, tuple) else (got,)
+    for part, (r, g) in enumerate(zip(refs, gots)):
+        err = float((g.cpu() - r).abs().max())
+        scale = float(r.abs().max())
+        log(f"{name} fp32 output {part} card vs CPU: max abs err {err:.3e} "
+            f"(max |value| {scale:.3e})")
+        if not err <= MODEL_TOL * max(scale, 1.0):
+            raise AssertionError(f"{name} outputs differ: {err} vs scale {scale}")
 
 
 def phase_logits_reference(dev) -> None:
-    """YOLOv8n at fp32 on the card (TF32 off) against the CPU on 2 frames."""
+    """YOLOv8n, ResNet18-Places365 and ArcFace iresnet18 at fp32 on the card
+    (TF32 off) against the CPU on small batches."""
     import torch
 
+    from eioku_tpu_torch.models.face_embed.model import IResNet18
+    from eioku_tpu_torch.models.resnet.model import ResNet18
     from eioku_tpu_torch.models.yolo.model import YOLOv8, YoloConfig, fold_batchnorm
 
     torch.backends.cudnn.allow_tf32 = False  # fp32 comparison: no TF32 convs
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        model = fold_batchnorm(YOLOv8(YoloConfig("yolov8n"),
-                                      generator=torch.Generator().manual_seed(0))).eval()
-        x = torch.rand((2, 3, 384, 640), generator=torch.Generator().manual_seed(2))
-        with torch.no_grad():
-            ref = model(x)
-            got = model.to(dev)(x.to(dev))
-        for name, r, g in zip(("box", "cls"), ref, got):
-            err = float((g.cpu() - r).abs().max())
-            scale = float(r.abs().max())
-            log(f"yolov8n fp32 {name} logits card vs CPU: max abs err {err:.3e} "
-                f"(max |logit| {scale:.3e})")
-            if not err <= 1e-4 * max(scale, 1.0):
-                raise AssertionError(f"{name} logits differ: {err} vs scale {scale}")
+        gen = torch.Generator().manual_seed(2)
+        _card_vs_cpu("yolov8n", fold_batchnorm(YOLOv8(
+            YoloConfig("yolov8n"), generator=torch.Generator().manual_seed(0))).eval(),
+            torch.rand((2, 3, 384, 640), generator=gen))
+        _card_vs_cpu("resnet18-places365", ResNet18(
+            generator=torch.Generator().manual_seed(0)).eval(),
+            torch.randn((2, 3, 224, 224), generator=gen))
+        _card_vs_cpu("arcface-iresnet18", IResNet18(
+            generator=torch.Generator().manual_seed(0)).eval(),
+            torch.rand((2, 3, 112, 112), generator=gen) * 2 - 1)
     finally:
         torch.backends.cudnn.allow_tf32 = True
 
@@ -904,13 +1066,15 @@ def main() -> int:
         {"name": "nms_keep", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/nms.cu",
          "replaces": "eioku_tpu/ops/nms.py:30",
-         "launches": sl["launches"]["nms"], **k2},
+         "launches": sl["launches"]["nms"], **k2,
+         "on_face_candidates": sl["k2_faces"], "on_object_candidates": sl["k2_objects"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/flash_attention.cu",
          "replaces": "eioku_tpu/ops/flash_attention.py:27",
          "launches": tr["launches"]["flash_attention"], **k3},
     ]
-    print(json.dumps({"slice": {k: v for k, v in sl.items() if k != "launches"}}))
+    print(json.dumps({"slice": {k: v for k, v in sl.items()
+                                if k not in ("launches", "k2_faces", "k2_objects")}}))
     print(json.dumps({"transcription": {k: v for k, v in tr.items() if k != "launches"},
                       "production_decode": dec, "card_vs_cpu": vs_cpu}))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""Combined visual analysis: one decode pass feeds scene scoring and object
-detection (port of eioku_tpu/ml/combined.py, scenes + objects).
+"""Combined visual analysis: one decode pass feeds scene scoring, object and
+face detection and place classification (port of eioku_tpu/ml/combined.py).
 
 The video is decoded once at the finest sampling rate and frames are routed
 to each consumer:
@@ -7,11 +7,17 @@ to each consumer:
   - scene scoring takes every sampled frame (host resize to 96x160 -> I420
     upload -> device HSV -> scene-diff kernel), in fixed 256-slot chunks;
   - object detection takes the subset on its interval, accumulated into
-    fixed-size batches and dispatched to the device asynchronously.
+    fixed-size batches and dispatched to the device asynchronously. Where
+    places sample the same grid, the same I420 upload also feeds ResNet18
+    (a device-side antialiased resize to 224); where the face grid is a
+    multiple of the object grid, the face detector reads a device-side
+    gather of that upload (the face rider);
+  - otherwise faces have their own consumer and places their own batches
+    (host resize to 224).
 
-Results are returned per task type. Places, faces and OCR, the other
-consumers of the JAX package's pass, are not ported yet: a config that
-carries one of them raises ModelNotAvailable.
+Results are returned per task type. OCR, the last consumer of the JAX
+package's pass, is not ported yet: a config that carries it raises
+ModelNotAvailable.
 """
 from __future__ import annotations
 
@@ -21,18 +27,27 @@ import shutil
 import cv2
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from eioku_tpu_torch.ml import video_io
 from eioku_tpu_torch.ml.detection import (
     INPUT_SIZE,
+    _assign_face_clusters,
     _load_model,
+    attach_face_embeddings,
     check_supported,
     emit_boxes,
+    face_payload,
     fetch,
     letterbox_batch,
+    object_payload,
 )
 from eioku_tpu_torch.ml.engine import ModelNotAvailable
+from eioku_tpu_torch.ml.places import _model as load_places
+from eioku_tpu_torch.ml.places import classify, place_records
 from eioku_tpu_torch.ml.scenes import SCENE_H, SCENE_W, assemble_scenes, scene_rows
+from eioku_tpu_torch.models.resnet.model import INPUT_SIZE as PLACE_SIZE
+from eioku_tpu_torch.models.resnet.model import normalize
 from eioku_tpu_torch.models.yolo.classes import COCO_CLASSES
 from eioku_tpu_torch.models.yolo.postprocess import detect, pad_offsets_for
 from eioku_tpu_torch.ops.colorspace import (
@@ -44,9 +59,9 @@ from eioku_tpu_torch.ops.scene_diff import scene_scores
 from eioku_tpu_torch.utils import progress
 from eioku_tpu_torch.utils.device import resolve_device
 
-
 SCENE_CHUNK = 256
-_UNPORTED_SUBTASKS = ("face_detection", "place_classification", "ocr")
+MAX_PENDING_PLACES = 48  # standalone places batches dispatched, not fetched
+_UNPORTED_SUBTASKS = ("ocr",)
 
 
 def _detect_i420(model, planes: torch.Tensor, conf_threshold: float) -> dict:
@@ -57,29 +72,96 @@ def _detect_i420(model, planes: torch.Tensor, conf_threshold: float) -> dict:
     return detect(model, i420_to_rgb(planes), conf_threshold=conf_threshold)
 
 
+def resize_for_places(rgb: torch.Tensor) -> torch.Tensor:
+    """Decode-scale RGB [B, H, W, 3] -> [B, 224, 224, 3], bilinear with
+    antialiasing, as jax.image.resize(method="bilinear") does when it
+    downsamples (without the antialias the pixels differ by up to 0.5)."""
+    imgs = F.interpolate(rgb.permute(0, 3, 1, 2), size=(PLACE_SIZE, PLACE_SIZE),
+                         mode="bilinear", align_corners=False, antialias=True)
+    return imgs.permute(0, 2, 3, 1)
+
+
+def _places_rgb(pmodel, rgb: torch.Tensor, top_k: int):
+    """Places top-k from decode-scale RGB [B, H, W, 3] in [0, 1]."""
+    return classify(pmodel, normalize(resize_for_places(rgb)), top_k)
+
+
+def _places_i420(pmodel, planes: torch.Tensor, top_k: int):
+    """Standalone places classification from host-resized 224px I420 thumbs."""
+    return classify(pmodel, normalize(i420_to_rgb(planes)), top_k)
+
+
+def _detect_faces_i420(ymodel, fmodel, planes: torch.Tensor,
+                       face_idx: torch.Tensor, conf_threshold: float,
+                       face_conf: float):
+    """Objects + faces from one upload: the face grid is a subset of the
+    object grid, so faces read a device-side gather of the same I420 upload
+    instead of paying their own host-to-device transfer."""
+    rgb = i420_to_rgb(planes)
+    det = detect(ymodel, rgb, conf_threshold=conf_threshold)
+    fdet = detect(fmodel, rgb[face_idx], conf_threshold=face_conf)
+    return det, fdet
+
+
+def _detect_places_faces_i420(ymodel, pmodel, fmodel, planes: torch.Tensor,
+                              face_idx: torch.Tensor, conf_threshold: float,
+                              top_k: int, face_conf: float):
+    """The fully fused frame pass: one I420 upload feeds objects, places (a
+    device-side resize) and the face-grid gather."""
+    rgb = i420_to_rgb(planes)
+    det = detect(ymodel, rgb, conf_threshold=conf_threshold)
+    sc, idx = _places_rgb(pmodel, rgb, top_k)
+    fdet = detect(fmodel, rgb[face_idx], conf_threshold=face_conf)
+    return det, sc, idx, fdet
+
+
+def _detect_places_i420(ymodel, pmodel, planes: torch.Tensor,
+                        conf_threshold: float, top_k: int):
+    """Objects + places from one upload: at the default 1 s cadence both
+    sample the same frames, so the separate 224px host resize and upload
+    disappear."""
+    rgb = i420_to_rgb(planes)
+    det = detect(ymodel, rgb, conf_threshold=conf_threshold)
+    sc, idx = _places_rgb(pmodel, rgb, top_k)
+    return det, sc, idx
+
+
 class _DetectionConsumer:
-    """Accumulates sampled frames into fixed batches for the object detector.
+    """Accumulates sampled frames into fixed batches for one detector.
 
     Offered frames may be pre-downscaled by the shared decode pass;
     coord_scale maps detector coordinates back to source pixels so payloads
-    stay in original-frame coordinates."""
+    stay in original-frame coordinates.
+
+    places = (model, labels, top_k): this consumer's frames also feed the
+    places classifier in the same device program. face_rider = {"model",
+    "conf", "step", "payload_builder"}: the face grid is a multiple of this
+    consumer's grid, so face frames ride the same upload via a device-side
+    gather; their rows go to face_rider["results"]."""
 
     # bounds queued device work: each undrained flush pins its uploaded batch
     MAX_PENDING = 16
 
-    def __init__(self, model_name: str, conf: float, step: int,
-                 batch_size: int, cache_dir, frame_ms: int,
-                 src_wh: tuple[int, int], coord_scale: float,
-                 device: torch.device):
-        self.model = _load_model(model_name, len(COCO_CLASSES), cache_dir,
-                                 device)
+    def __init__(self, model_name: str, num_classes: int, class_names,
+                 conf: float, step: int, batch_size: int, cache_dir,
+                 payload_builder, frame_ms: int, src_wh: tuple[int, int],
+                 coord_scale: float, device: torch.device,
+                 places: tuple | None = None, face_rider: dict | None = None):
+        self.model = _load_model(model_name, num_classes, cache_dir, device)
+        self.class_names = class_names
         self.device = device
         self.conf = conf
         self.step = max(step, 1)
         self.batch_size = batch_size
+        self.payload_builder = payload_builder
         self.frame_ms = frame_ms
         self.src_wh = src_wh
         self.coord_scale = coord_scale
+        self.places = places
+        self.place_results: list[dict] = []
+        self.face_rider = face_rider
+        if face_rider is not None:
+            face_rider.setdefault("results", [])
         self._frames: list[np.ndarray] = []
         self._meta: list[tuple[int, int]] = []  # (frame_idx, t_ms)
         self._pending: list[tuple] = []  # dispatched, not yet fetched
@@ -93,10 +175,13 @@ class _DetectionConsumer:
         if len(self._frames) == self.batch_size:
             self.flush()
 
+    def _upload_i420(self, frames) -> torch.Tensor:
+        return torch.from_numpy(to_i420(list(frames))).to(self.device)
+
     def flush(self) -> None:
         """Dispatch the batch to the device without fetching its results:
-        CUDA work is asynchronous, so detection overlaps decode and scene
-        scoring; drain() fetches."""
+        CUDA work is asynchronous, so detection overlaps decode and the other
+        consumers; drain() fetches."""
         if not self._frames:
             return
         valid = len(self._frames)
@@ -118,23 +203,88 @@ class _DetectionConsumer:
             boxed = stack
         else:
             boxed, scale, pads = letterbox_batch(stack, valid)
-        if boxed.shape[1] % 2 == 0 and boxed.shape[2] % 2 == 0:
-            # ship I420 (half the bytes); the device converts back
-            planes = torch.from_numpy(to_i420(list(boxed))).to(self.device)
-            out = _detect_i420(self.model, planes, self.conf)
-        else:  # odd geometry can't subsample chroma: plain RGB upload
-            out = detect(self.model, torch.from_numpy(boxed).to(self.device),
-                         conf_threshold=self.conf)
-        self._pending.append((out, self._meta, scale, pads, valid))
+        places_out = None
+        face_out = None  # (fdet, face_meta, face_valid) when faces rode along
+        even = boxed.shape[1] % 2 == 0 and boxed.shape[2] % 2 == 0
+        letterboxed = boxed is not stack
+        rider = self.face_rider
+        face_sel = []
+        if rider is not None:
+            face_sel = [k for k, (fi, _) in enumerate(self._meta)
+                        if fi % rider["step"] == 0]
+        if even and not letterboxed and face_sel:
+            # fully fused: one upload feeds objects (+ places) and the
+            # face-grid gather; face_idx is padded to a per-bucket cap so the
+            # gather's shape is fixed. The cap bounds the face frames a
+            # bucket can hold: none is ever dropped.
+            cap = bucket // max(rider["step"] // self.step, 1) + 1
+            assert len(face_sel) <= cap, (len(face_sel), cap)
+            fidx = np.zeros((cap,), np.int64)
+            fidx[:len(face_sel)] = face_sel
+            planes = self._upload_i420(boxed)
+            face_idx = torch.from_numpy(fidx).to(self.device)
+            if self.places is not None:
+                pmodel, _, topk = self.places
+                out, psc, pidx, fdet = _detect_places_faces_i420(
+                    self.model, pmodel, rider["model"], planes, face_idx,
+                    self.conf, topk, rider["conf"])
+                places_out = (psc, pidx)
+            else:
+                out, fdet = _detect_faces_i420(
+                    self.model, rider["model"], planes, face_idx, self.conf,
+                    rider["conf"])
+            face_out = (fdet, [self._meta[k] for k in face_sel], len(face_sel))
+        elif even and self.places is not None and not letterboxed:
+            # one upload for objects and places: the detector frames are the
+            # raw decode output (no gray bars), so places can read them too
+            pmodel, _, topk = self.places
+            out, psc, pidx = _detect_places_i420(
+                self.model, pmodel, self._upload_i420(boxed), self.conf, topk)
+            places_out = (psc, pidx)
+        else:
+            if even:
+                # ship I420 (half the bytes); the device converts back
+                out = _detect_i420(self.model, self._upload_i420(boxed), self.conf)
+            else:  # odd geometry can't subsample chroma: plain RGB upload
+                out = detect(self.model, torch.from_numpy(boxed).to(self.device),
+                             conf_threshold=self.conf)
+            if self.places is not None:
+                # letterboxed (or odd) frames would feed gray bars into the
+                # classifier: resize the RAW frames to 224 on the host, as
+                # the standalone path does
+                resized = [cv2.resize(f, (PLACE_SIZE, PLACE_SIZE),
+                                      interpolation=cv2.INTER_AREA)
+                           for f in self._frames]
+                resized += [np.zeros_like(resized[0])] * (bucket - valid)
+                pmodel, _, topk = self.places
+                places_out = _places_i420(pmodel, self._upload_i420(resized), topk)
+        if face_sel and face_out is None:
+            # the fused route did not run (letterbox or odd geometry): gather
+            # the face frames on the host and run the rider's own detect
+            fstack = np.stack([boxed[k] for k in face_sel])
+            fdet = detect(rider["model"], torch.from_numpy(fstack).to(self.device),
+                          conf_threshold=rider["conf"])
+            face_out = (fdet, [self._meta[k] for k in face_sel], len(face_sel))
+        self._pending.append((out, self._meta, scale, pads, valid, places_out,
+                              face_out))
         self._frames, self._meta = [], []
         if len(self._pending) >= self.MAX_PENDING:
             self.drain()
 
     def drain(self) -> None:
-        for out, meta, scale, pads, valid in self._pending:
+        for out, meta, scale, pads, valid, places_out, face_out in self._pending:
+            if places_out is not None:
+                self.place_results.extend(place_records(
+                    places_out[0].cpu().numpy(), places_out[1].cpu().numpy(),
+                    meta, valid, self.places[1], self.frame_ms))
+            if face_out is not None:
+                fdet, fmeta, fvalid = face_out
+                emit_boxes(self.face_rider["results"], fetch(fdet), fmeta, scale,
+                           pads, fvalid, self.coord_scale, self.src_wh,
+                           self.frame_ms, [], self.face_rider["payload_builder"])
             emit_boxes(self.results, fetch(out), meta, scale, pads, valid,
                        self.coord_scale, self.src_wh, self.frame_ms,
-                       COCO_CLASSES)
+                       self.class_names, self.payload_builder)
         self._pending = []
 
 
@@ -142,30 +292,35 @@ def run_visual_analysis(video_path: str, config: dict,
                         model_cache_dir: str | None = None,
                         device: str | torch.device | None = None
                         ) -> dict[str, list[dict]]:
-    """Returns {task_type: results} for scene_detection and object_detection
-    (each present when its sub-config is) from ONE decode pass."""
+    """Returns {task_type: results} for scene_detection, object_detection,
+    face_detection and place_classification (each present when its
+    sub-config is) from ONE decode pass."""
     for key in _UNPORTED_SUBTASKS:
         if config.get(key) is not None:
             raise ModelNotAvailable(
                 f"visual_analysis sub-task {key!r} is not ported to "
-                "eioku_tpu_torch (scene_detection and object_detection are)")
+                "eioku_tpu_torch")
     scfg = config.get("scene_detection")
     ocfg = config.get("object_detection")
-    if ocfg is not None:
-        check_supported(ocfg)
+    fcfg = config.get("face_detection")
+    pcfg = config.get("place_classification")
+    for sub in (ocfg, fcfg):
+        if sub is not None:
+            check_supported(sub)
     dev = resolve_device(device)
 
     info = video_io.probe(video_path)
     fps = info.fps or 30.0
     frame_ms = int(round(1000.0 / fps))
-    # base sampling grid: the scene cadence when scenes run, else the object
-    # cadence
+    # base sampling grid: the scene cadence when scenes run, else the
+    # fastest active consumer cadence
     if scfg is not None:
         interval_s = 1.0 / max(float(scfg.get("sample_fps", 4.0)), 1e-6)
-    elif ocfg is not None:
-        interval_s = float(ocfg.get("frame_interval_s", 1.0))
     else:
-        interval_s = 1.0
+        candidates = [float(c.get("frame_interval_s", d))
+                      for c, d in ((ocfg, 1.0), (fcfg, 3.0), (pcfg, 1.0))
+                      if c is not None]
+        interval_s = min(candidates) if candidates else 1.0
     base_step = max(int(round(fps * interval_s)), 1)
 
     def substep(seconds: float) -> int:
@@ -173,8 +328,8 @@ def run_visual_analysis(video_path: str, config: dict,
         return max(int(round(fps * seconds / base_step)), 1) * base_step
 
     # decode directly at the detector's long-side geometry (aspect
-    # preserved): scenes derive from ~1/4 the source pixels and detection
-    # letterboxing becomes pad-only; boxes map back via coord_scale
+    # preserved): places and scenes derive from ~1/4 the source pixels and
+    # detection letterboxing becomes pad-only; boxes map back via coord_scale
     det_long = int(config.get("detector_size", 640))
     ds = det_long / max(info.width, info.height, 1)
     if ds < 1.0:
@@ -184,14 +339,79 @@ def run_visual_analysis(video_path: str, config: dict,
     else:
         dec_hw = None
         coord_scale = 1.0
+    src_wh = (info.width, info.height)
 
+    if pcfg is not None:
+        place_model, place_labels = load_places(model_cache_dir, dev)
+        place_step = substep(float(pcfg.get("frame_interval_s", 1.0)))
+        place_topk = int(pcfg.get("top_k", 5))
+        place_bs = int(pcfg.get("batch_size", 64))
+    else:
+        place_step = 0
+    obj_step = substep(float(ocfg.get("frame_interval_s", 1.0))) \
+        if ocfg is not None else 0
+    # places fuse into the object consumer when both sample the same grid
+    # (the 1 s default): one I420 upload, one device program for both tasks
+    fuse_places = pcfg is not None and ocfg is not None and place_step == obj_step
+    face_step = substep(float(fcfg.get("frame_interval_s", 3.0))) \
+        if fcfg is not None else 0
+    face_conf = float(fcfg.get("confidence_threshold", 0.7)) \
+        if fcfg is not None else 0.0
+    # faces fuse into the object consumer when their (sparser) grid is a
+    # multiple of the object grid: the face frames are a device-side gather
+    # of the already-uploaded object batch
+    fuse_faces = fcfg is not None and ocfg is not None \
+        and face_step % max(obj_step, 1) == 0 \
+        and bool(config.get("fuse_faces", True))
+    face_rider = {
+        "model": _load_model(fcfg.get("model", "yolov8n-face"), 1,
+                             model_cache_dir, dev),
+        "conf": face_conf, "step": face_step, "payload_builder": face_payload,
+        "results": []} if fuse_faces else None
     objects = _DetectionConsumer(
-        ocfg.get("model", "yolov8n"),
-        float(ocfg.get("confidence_threshold", 0.5)),
-        substep(float(ocfg.get("frame_interval_s", 1.0))),
-        int(ocfg.get("batch_size", 64)),
-        model_cache_dir, frame_ms, (info.width, info.height), coord_scale,
-        dev) if ocfg is not None else None
+        ocfg.get("model", "yolov8n"), len(COCO_CLASSES), COCO_CLASSES,
+        float(ocfg.get("confidence_threshold", 0.5)), obj_step,
+        int(ocfg.get("batch_size", 64)), model_cache_dir, object_payload,
+        frame_ms, src_wh, coord_scale, dev,
+        places=(place_model, place_labels, place_topk) if fuse_places else None,
+        face_rider=face_rider) if ocfg is not None else None
+    if fuse_places:
+        place_step = 0  # the standalone places path below stays idle
+    faces = _DetectionConsumer(
+        fcfg.get("model", "yolov8n-face"), 1, [], face_conf, face_step,
+        int(fcfg.get("batch_size", 64)), model_cache_dir, face_payload,
+        frame_ms, src_wh, coord_scale, dev) \
+        if fcfg is not None and not fuse_faces else None
+
+    place_batch: list[np.ndarray] = []
+    place_meta: list[tuple[int, int]] = []
+    place_pending: list[tuple] = []  # (scores_dev, idx_dev, meta, valid)
+    place_results: list[dict] = []
+
+    def flush_places():
+        """Dispatch asynchronously; drain_places() fetches."""
+        if not place_batch:
+            return
+        valid = len(place_batch)
+        # host resize to 224 keeps the upload small; I420 halves it again
+        resized = [cv2.resize(f, (PLACE_SIZE, PLACE_SIZE),
+                              interpolation=cv2.INTER_AREA) for f in place_batch]
+        stack = resized + [np.zeros_like(resized[0])] * (place_bs - valid)
+        sc, idx = _places_i420(place_model,
+                               torch.from_numpy(to_i420(stack)).to(dev),
+                               place_topk)
+        place_pending.append((sc, idx, list(place_meta), valid))
+        place_batch.clear()
+        place_meta.clear()
+        if len(place_pending) >= MAX_PENDING_PLACES:
+            drain_places()
+
+    def drain_places():
+        for sc, idx, meta, valid in place_pending:
+            place_results.extend(place_records(
+                sc.cpu().numpy(), idx.cpu().numpy(), meta, valid, place_labels,
+                frame_ms))
+        place_pending.clear()
 
     # scene state: sampled frames accumulate into fixed 256-slot chunks;
     # score tensors stay on the device until the post-pass and the
@@ -250,23 +470,38 @@ def run_visual_analysis(video_path: str, config: dict,
                 scene_stamps.append(int(batch.timestamps_ms[i]))
                 if len(scene_buf) == SCENE_CHUNK:
                     flush_scenes()
-        if objects is not None:
-            for slot in range(batch.valid):
-                # .copy(): a view would pin the whole decode batch in memory
-                # until the consumer's next flush
-                objects.offer(batch.frames[slot].copy(),
-                              int(batch.frame_indices[slot]),
-                              int(batch.timestamps_ms[slot]))
+        for slot in range(batch.valid):
+            fi = int(batch.frame_indices[slot])
+            t_ms = int(batch.timestamps_ms[slot])
+            # .copy(): a view would pin the whole decode batch in memory
+            # until the consumer's next flush
+            if objects is not None:
+                objects.offer(batch.frames[slot].copy(), fi, t_ms)
+            if faces is not None:
+                faces.offer(batch.frames[slot].copy(), fi, t_ms)
+            if place_step and fi % place_step == 0:
+                place_batch.append(batch.frames[slot].copy())
+                place_meta.append((fi, t_ms))
+                if len(place_batch) == place_bs:
+                    flush_places()
         if info.duration_ms > 0 and batch.valid:
             # the post-loop drain is a small tail; cap decode at 95%
             progress.report(0.95 * batch.timestamps_ms[batch.valid - 1]
                             / info.duration_ms)
-    # final partial batches all dispatch before anything drains
+    # final partial batches ALL dispatch before anything drains, so their
+    # uploads and executions queue back to back
     if scfg is not None:
         flush_scenes()
     if objects is not None:
         objects.flush()
+    if faces is not None:
+        faces.flush()
+    flush_places()
+    if objects is not None:
         objects.drain()
+    if faces is not None:
+        faces.drain()
+    drain_places()
 
     out: dict[str, list[dict]] = {}
     if scfg is not None:
@@ -285,4 +520,16 @@ def run_visual_analysis(video_path: str, config: dict,
             float(scfg.get("min_scene_len_s", 0.5))))
     if objects is not None:
         out["object_detection"] = objects.results
+    if fcfg is not None:
+        face_results = face_rider["results"] if fuse_faces else faces.results
+        _assign_face_clusters(face_results, frame_step=face_step)
+        if fcfg.get("embeddings"):
+            # the pass has released its frames: re-decode the face-sampled
+            # ones on the TRUE face grid (face_step, snapped to the base step)
+            attach_face_embeddings(video_path, face_results, face_step,
+                                   model_cache_dir, dev)
+        out["face_detection"] = face_results
+    if pcfg is not None:
+        out["place_classification"] = objects.place_results if fuse_places \
+            else place_results
     return out

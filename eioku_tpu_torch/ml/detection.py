@@ -1,13 +1,17 @@
-"""Object detection over batched video frames (port of eioku_tpu/ml/detection.py,
-objects only).
+"""Object and face detection over batched video frames (port of
+eioku_tpu/ml/detection.py).
 
-Frames are letterboxed on the host into fixed 640x640 batches and the whole
-forward + decode + top-K + NMS graph runs on the device per batch; boxes are
-un-letterboxed back to source pixels on the host.
+Objects: yolov8n, conf 0.5, every 1 s. Faces: yolov8n-face (one class), conf
+0.7, every 3 s, label "face", a cluster id from cross-frame IoU tracking and,
+with {"embeddings": true}, an L2-normalised ArcFace identity embedding per
+face. Frames are letterboxed on the host into fixed 640x640 batches and the
+whole forward + decode + top-K + NMS graph runs on the device per batch;
+boxes are un-letterboxed back to source pixels on the host.
 
-Checkpoints: `{model}.pt` (ultralytics format) under model_cache_dir, else
-random-init weights from a seeded `torch.Generator` with a warning, so the
-pipeline stays runnable without downloads.
+Checkpoints: `{model}.pt` (ultralytics format) and `arcface_r18.pth`
+(insightface layout) under model_cache_dir, else random-init weights from a
+seeded `torch.Generator` with a warning, so the pipeline stays runnable
+without downloads.
 """
 from __future__ import annotations
 
@@ -80,11 +84,22 @@ def _load_model(model_name: str, num_classes: int, cache_dir: str | None,
     return model.to(device=device, dtype=compute_dtype(device)).eval()
 
 
+def object_payload(label: str, conf: float, box: dict, frame: int) -> dict:
+    return {"label": label, "confidence": conf, "bounding_box": box,
+            "frame_number": frame}
+
+
+def face_payload(label: str, conf: float, box: dict, frame: int) -> dict:
+    return {"cluster_id": None, "confidence": conf, "bounding_box": box,
+            "frame_number": frame}
+
+
 def emit_boxes(sink: list, out_np, meta, scale: float, pads, valid: int,
                coord_scale: float, src_wh: tuple[int, int], frame_ms: int,
-               class_names) -> None:
-    """Un-letterbox, clip and build object payloads for one fetched batch.
-    meta[i] = (frame_number, t_ms) of batch slot i."""
+               class_names, payload_builder=object_payload) -> None:
+    """Un-letterbox, clip and build payloads for one fetched batch. meta[i] =
+    (frame_number, t_ms) of batch slot i; the label is "face" when there are
+    no class names."""
     pad_x, pad_y = pads
     src_w, src_h = src_wh
     boxes, scores, classes, ok = out_np
@@ -98,13 +113,12 @@ def emit_boxes(sink: list, out_np, meta, scale: float, pads, valid: int,
             y2 = float(np.clip((y2 - pad_y) / scale * coord_scale, 0, src_h))
             if x2 <= x1 or y2 <= y1:
                 continue
+            label = class_names[int(classes[i, j])] if class_names else "face"
             sink.append({
-                "payload": {"label": class_names[int(classes[i, j])],
-                            "confidence": float(scores[i, j]),
-                            "bounding_box": {"x": x1, "y": y1,
-                                             "width": x2 - x1,
-                                             "height": y2 - y1},
-                            "frame_number": frame_idx},
+                "payload": payload_builder(
+                    label, float(scores[i, j]),
+                    {"x": x1, "y": y1, "width": x2 - x1, "height": y2 - y1},
+                    frame_idx),
                 "span_start_ms": t_ms,
                 "span_end_ms": t_ms + frame_ms,
             })
@@ -116,17 +130,20 @@ def fetch(out: dict) -> tuple[np.ndarray, ...]:
                  for k in ("boxes", "scores", "classes", "valid"))
 
 
-def run_object_detection(video_path: str, config: dict,
-                         model_cache_dir: str | None = None,
-                         device: str | torch.device | None = None) -> list[dict]:
+def _run_detection(video_path: str, config: dict, *, model_name: str,
+                   num_classes: int, class_names: list[str],
+                   default_conf: float, default_interval: float,
+                   model_cache_dir: str | None, payload_builder,
+                   device: torch.device, batch_hook=None) -> list[dict]:
+    """The detection task loop shared by objects and faces. batch_hook(batch,
+    rows) runs after each batch's rows are built, while its decoded frames
+    are still in memory."""
     check_supported(config)
-    dev = resolve_device(device)
-    conf = float(config.get("confidence_threshold", 0.5))
-    interval = float(config.get("frame_interval_s", 1.0))
+    conf = float(config.get("confidence_threshold", default_conf))
+    interval = float(config.get("frame_interval_s", default_interval))
     batch_size = int(config.get("batch_size", 32))
     top_k = int(config.get("top_k", 256))
-    model = _load_model(config.get("model", "yolov8n"), len(COCO_CLASSES),
-                        model_cache_dir, dev)
+    model = _load_model(model_name, num_classes, model_cache_dir, device)
     info = video_io.probe(video_path)
     frame_ms = int(round(1000.0 / info.fps)) if info.fps else 33
 
@@ -136,14 +153,179 @@ def run_object_detection(video_path: str, config: dict,
             decode_threads=int(config.get("decode_threads", 4)),
             decode_procs=int(config.get("decode_procs", 0)),
             fast_level=int(config.get("decode_fast", 1)))):
+        batch_start = len(results)
         boxed, scale, pads = letterbox_batch(batch.frames, batch.valid)
-        out = detect(model, torch.from_numpy(boxed).to(dev),
+        out = detect(model, torch.from_numpy(boxed).to(device),
                      conf_threshold=conf, top_k=top_k)
         meta = [(int(batch.frame_indices[i]), int(batch.timestamps_ms[i]))
                 for i in range(batch.valid)]
         emit_boxes(results, fetch(out), meta, scale, pads, batch.valid, 1.0,
-                   (info.width, info.height), frame_ms, COCO_CLASSES)
+                   (info.width, info.height), frame_ms, class_names,
+                   payload_builder)
+        if batch_hook is not None:
+            batch_hook(batch, results[batch_start:])
         if info.duration_ms > 0 and batch.valid:
             progress.report(batch.timestamps_ms[batch.valid - 1]
                             / info.duration_ms)
     return results
+
+
+def run_object_detection(video_path: str, config: dict,
+                         model_cache_dir: str | None = None,
+                         device: str | torch.device | None = None) -> list[dict]:
+    return _run_detection(
+        video_path, config, model_name=config.get("model", "yolov8n"),
+        num_classes=len(COCO_CLASSES), class_names=COCO_CLASSES,
+        default_conf=0.5, default_interval=1.0, model_cache_dir=model_cache_dir,
+        payload_builder=object_payload, device=resolve_device(device))
+
+
+def run_face_detection(video_path: str, config: dict,
+                       model_cache_dir: str | None = None,
+                       device: str | torch.device | None = None) -> list[dict]:
+    """{"embeddings": true}: ArcFace identity embeddings per face, cropped
+    from the decoded frames in the same pass (no second decode)."""
+    dev = resolve_device(device)
+    collector = _FaceCropCollector(dev) if config.get("embeddings") else None
+    results = _run_detection(
+        video_path, config, model_name=config.get("model", "yolov8n-face"),
+        num_classes=1, class_names=[], default_conf=0.7, default_interval=3.0,
+        model_cache_dir=model_cache_dir, payload_builder=face_payload,
+        device=dev, batch_hook=collector.collect if collector else None)
+    _assign_face_clusters(results)
+    if collector:
+        collector.attach_embeddings(model_cache_dir)
+    return results
+
+
+class _FaceCropCollector:
+    """Crops face boxes from each decoded batch, then embeds all crops with
+    the ArcFace model (fp32) and writes payload.embedding: L2-normalised, so
+    People clustering works in plain cosine space, rounded to 5 places."""
+
+    EMBED_BATCH = 64
+
+    def __init__(self, device: torch.device):
+        from eioku_tpu_torch.models.face_embed.model import INPUT_SIZE as FACE_SIZE
+
+        self.device = device
+        self.size = FACE_SIZE
+        self.crops: list[np.ndarray] = []
+        self.payloads: list[dict] = []
+
+    def collect(self, batch, batch_results: list[dict]) -> None:
+        local = {int(f): i for i, f in
+                 enumerate(batch.frame_indices[:batch.valid])}
+        for r in batch_results:
+            p = r["payload"]
+            i = local.get(p["frame_number"])
+            if i is None:
+                continue
+            b = p["bounding_box"]
+            x1, y1 = int(b["x"]), int(b["y"])
+            x2, y2 = int(b["x"] + b["width"]), int(b["y"] + b["height"])
+            crop = batch.frames[i, max(y1, 0):max(y2, 1), max(x1, 0):max(x2, 1)]
+            if crop.size == 0:
+                continue
+            self.crops.append(cv2.resize(crop, (self.size, self.size),
+                                         interpolation=cv2.INTER_LINEAR))
+            self.payloads.append(p)
+
+    @torch.no_grad()
+    def attach_embeddings(self, model_cache_dir: str | None) -> None:
+        if not self.crops:
+            return
+        from eioku_tpu_torch.models.face_embed.model import preprocess
+
+        model = _load_face_embedder(model_cache_dir, self.device)
+        crops = preprocess(np.stack(self.crops))
+        vecs = []
+        bs = self.EMBED_BATCH
+        for i in range(0, len(crops), bs):
+            chunk = crops[i:i + bs]
+            n = len(chunk)
+            if n < bs:  # one fixed batch shape
+                chunk = np.concatenate(
+                    [chunk, np.zeros((bs - n,) + chunk.shape[1:], np.float32)])
+            x = torch.from_numpy(chunk).to(self.device).permute(0, 3, 1, 2)
+            vecs.append(model(x)[:n].cpu().numpy())
+        emb = np.concatenate(vecs).astype(np.float32)
+        emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-9)
+        for p, v in zip(self.payloads, emb):
+            p["embedding"] = [round(float(x), 5) for x in v]
+
+
+def attach_face_embeddings(video_path: str, results: list[dict],
+                           frame_step: int,
+                           model_cache_dir: str | None = None,
+                           device: str | torch.device | None = None,
+                           batch_size: int = 32) -> None:
+    """The {"embeddings": true} path for pipelines that no longer hold the
+    decoded frames (the combined visual pass): re-decode on the EXACT
+    sampling grid the faces came from and crop the boxes whose frame numbers
+    match. frame_step is the caller's true source-frames-per-sample (the
+    combined pass's face step, snapped to its base grid); re-deriving a grid
+    from a seconds interval here would round differently and miss every face
+    off the re-derived grid."""
+    if not results:
+        return
+    info = video_io.probe(video_path)
+    fps = info.fps or 30.0
+    by_frame: dict[int, list[dict]] = {}
+    for r in results:
+        by_frame.setdefault(r["payload"]["frame_number"], []).append(r)
+    collector = _FaceCropCollector(resolve_device(device))
+    matched_frames: set[int] = set()
+    # iter_frame_batches recomputes step = round(fps * interval); feeding
+    # frame_step / fps back through that is an exact round trip
+    for batch in video_io.iter_frame_batches(
+            video_path, batch_size=batch_size,
+            frame_interval_s=max(frame_step, 1) / fps):
+        frames = [int(f) for f in batch.frame_indices[:batch.valid]]
+        matched = [r for f in frames for r in by_frame.get(f, [])]
+        matched_frames.update(f for f in frames if f in by_frame)
+        if matched:
+            collector.collect(batch, matched)
+    missed = set(by_frame) - matched_frames
+    if missed:
+        log.warning("face embedding re-decode missed %d/%d face frames "
+                    "(frame_step=%d mismatch?)", len(missed), len(by_frame),
+                    frame_step)
+    collector.attach_embeddings(model_cache_dir)
+
+
+@lru_cache(maxsize=2)
+def _load_face_embedder(model_cache_dir: str | None, device: torch.device):
+    """The ArcFace model on `device`, fp32, in eval mode."""
+    from eioku_tpu_torch.models.face_embed.model import load_face_embed
+
+    model, pretrained = load_face_embed(model_cache_dir)
+    if not pretrained:
+        log.warning("no arcface_r18 checkpoint; face embeddings are "
+                    "random-init (clustering quality will be poor)")
+    return model.to(device=device, dtype=torch.float32).eval()
+
+
+def _assign_face_clusters(results: list[dict],
+                          frame_step: int | None = None) -> None:
+    """Cross-frame IoU tracking -> cluster ids (ml/face_tracking.py).
+
+    frame_step: source frames per sample; estimated from the detection frame
+    numbers when not provided (frames with no faces never reach the tracker,
+    so gaps must be measured in source-frame distance)."""
+    from eioku_tpu_torch.ml.face_tracking import FaceTracker
+
+    frames = sorted({r["payload"]["frame_number"] for r in results})
+    if frame_step is None:
+        diffs = [b - a for a, b in zip(frames, frames[1:]) if b > a]
+        frame_step = min(diffs) if diffs else 1
+    tracker = FaceTracker(frame_step=max(frame_step, 1))
+    by_frame: dict[int, list[dict]] = {}
+    for r in results:
+        by_frame.setdefault(r["payload"]["frame_number"], []).append(r)
+    for frame in frames:
+        group = by_frame[frame]
+        ids = tracker.assign([r["payload"]["bounding_box"] for r in group],
+                             frame_index=frame)
+        for r, cid in zip(group, ids):
+            r["payload"]["cluster_id"] = cid

@@ -2,9 +2,10 @@
 (port of eioku_tpu/ml/engine.py).
 
 Same dispatch keys as the JAX engine. The port implements
-scene_detection, object_detection, visual_analysis (scenes + objects) and
-transcription; every other task type raises ModelNotAvailable, which the
-task handler records as a clean task failure.
+scene_detection, object_detection, face_detection, place_classification,
+visual_analysis (scenes, objects, faces, places) and transcription; every
+other task type raises ModelNotAvailable, which the task handler records as
+a clean task failure.
 
 Results are lists of {"payload": dict, "span_start_ms": int,
 "span_end_ms": int}; visual_analysis returns {sub_task_type: results}.
@@ -58,6 +59,8 @@ class InferenceEngine:
         ported = {
             "scene_detection": self._scene_detection,
             "object_detection": self._object_detection,
+            "face_detection": self._face_detection,
+            "place_classification": self._place_classification,
             "visual_analysis": self._visual_analysis,
             "transcription": self._transcription,
         }
@@ -99,6 +102,18 @@ class InferenceEngine:
         return run_object_detection(video_path, config,
                                     model_cache_dir=self.model_cache_dir,
                                     device=self.device)
+
+    def _face_detection(self, video_path: str, config: dict) -> list[dict]:
+        from eioku_tpu_torch.ml.detection import run_face_detection
+        return run_face_detection(video_path, config,
+                                  model_cache_dir=self.model_cache_dir,
+                                  device=self.device)
+
+    def _place_classification(self, video_path: str, config: dict) -> list[dict]:
+        from eioku_tpu_torch.ml.places import run_place_classification
+        return run_place_classification(video_path, config,
+                                        model_cache_dir=self.model_cache_dir,
+                                        device=self.device)
 
     def _visual_analysis(self, video_path: str, config: dict) -> dict:
         """Combined one-decode-pass pipeline; returns {sub_task_type: results}."""

@@ -74,10 +74,13 @@ def test_nms_kernel_equals_plain(cuda_device, k):
 
 # the bitmask's word edges (one rank, one short of a word, one past it),
 # 8,400 candidates (every anchor of a 640 x 640 input), the kernel's limit
-# and the main path's 80 classes
+# and the main path's 80 classes; the face detector's one class (every
+# pair IoU-tested) at the face consumer's 32-slot bucket and the fused
+# gather's 22 slots
 @pytest.mark.parametrize("b,k,n_classes", [(2, 1, 3), (2, 63, 3), (2, 65, 3),
                                            (2, 8400, 3), (1, MAX_CANDIDATES, 3),
-                                           (64, 256, 80), (4, 1024, 80)])
+                                           (64, 256, 80), (4, 1024, 80),
+                                           (32, 256, 1), (22, 256, 1)])
 def test_nms_kernel_equals_plain_at_word_edges(cuda_device, b, k, n_classes):
     _assert_nms_equals_plain(*_nms_workload(b, k, seed=k, pad_from=k - k // 5,
                                             n_classes=n_classes), cuda_device)

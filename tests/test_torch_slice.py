@@ -1,9 +1,11 @@
-"""The PyTorch port's first slice end to end against the JAX package (CPU).
+"""The PyTorch port's combined visual pass end to end against the JAX
+package (CPU).
 
-The combined visual pass (scenes + YOLOv8n objects) and standalone scene
-detection run through both packages on the same synthetic clips; the port's
-engine refuses what the slice does not cover; the port imports nothing of
-JAX or of the JAX package.
+The combined visual pass (scenes, YOLOv8n objects, yolov8n-face faces with
+ArcFace embeddings, ResNet18-Places365 places) on each of its routes, and
+standalone scene and object detection, run through both packages on the
+same synthetic clips; the port's engine refuses what it does not cover; the
+port imports nothing of JAX or of the JAX package.
 """
 import ast
 import pathlib
@@ -15,19 +17,28 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from eioku_tpu.ml import combined as jax_combined
 from eioku_tpu.ml.combined import run_visual_analysis as jax_visual_analysis
 from eioku_tpu.ml.scenes import detect_scenes as jax_detect_scenes
+from eioku_tpu.models.face_embed.model import init_face_embed_params
+from eioku_tpu.models.resnet.model import IMAGENET_MEAN as JAX_IMAGENET_MEAN
+from eioku_tpu.models.resnet.model import IMAGENET_STD as JAX_IMAGENET_STD
+from eioku_tpu.models.resnet.model import init_resnet18_params, resnet18_forward
 from eioku_tpu.models.yolo.model import YoloConfig as JaxYoloConfig
 from eioku_tpu.models.yolo.model import init_yolo_params
 from eioku_tpu.models.yolo.postprocess import detect as jax_detect
 from eioku_tpu.models.yolo.weights import export_ultralytics_state_dict
 from eioku_tpu.ops.colorspace import i420_to_rgb as jax_i420_to_rgb
+from eioku_tpu_torch.ml import combined as port_combined
 from eioku_tpu_torch.ml import engine as port_engine
 from eioku_tpu_torch.ml.combined import run_visual_analysis
 from eioku_tpu_torch.ml.engine import InferenceEngine, ModelNotAvailable
 from eioku_tpu_torch.ml.scenes import detect_scenes
+from eioku_tpu_torch.models.face_embed.model import from_jax_params as arcface_from_jax
+from eioku_tpu_torch.models.resnet.model import from_jax_params as resnet_from_jax
+from test_torch_places import assert_place_rows_match
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -126,27 +137,33 @@ def test_visual_analysis_keyframe_cache_matches_jax(scene_video, tmp_path):
     assert names["torch"] == [f"{t}.jpg" for t in range(0, 7000, 1000)]
 
 
-def _match_rows(want, got, box_px=2.0, conf_tol=0.02):
-    """Greedy one-to-one matching by (frame, label), box corners within
-    box_px and confidence within conf_tol; returns the matched count."""
+def _match_pairs(want, got, box_px=2.0, conf_tol=0.02):
+    """Greedy one-to-one matching by (frame, label) -- faces have no label
+    -- with box corners within box_px and confidence within conf_tol;
+    returns the matched (want, got) payload pairs."""
     pool: dict = {}
     for r in got:
         p = r["payload"]
-        pool.setdefault((p["frame_number"], p["label"]), []).append(p)
-    matched = 0
+        pool.setdefault((p["frame_number"], p.get("label")), []).append(p)
+    pairs = []
     for r in want:
         p = r["payload"]
-        cands = pool.get((p["frame_number"], p["label"]), [])
+        cands = pool.get((p["frame_number"], p.get("label")), [])
         for i, q in enumerate(cands):
             bp, bq = p["bounding_box"], q["bounding_box"]
             if abs(p["confidence"] - q["confidence"]) <= conf_tol and all(
                     abs(bp[k] - bq[k]) <= box_px for k in ("x", "y")) and all(
                     abs((bp[a] + bp[b]) - (bq[a] + bq[b])) <= box_px
                     for a, b in (("x", "width"), ("y", "height"))):
-                matched += 1
+                pairs.append((p, q))
                 del cands[i]
                 break
-    return matched
+    return pairs
+
+
+def _match_rows(want, got, box_px=2.0, conf_tol=0.02):
+    """The number of rows `_match_pairs` matches."""
+    return len(_match_pairs(want, got, box_px, conf_tol))
 
 
 @partial(jax.jit, static_argnames=("cfg", "conf_threshold"))
@@ -216,13 +233,215 @@ def test_object_detection_task_honours_top_k(detector_clip):
     assert frames and max(per_frame) <= 8
 
 
+# -- the whole combined pass: scenes, objects, faces (with embeddings), places
+
+FACE_CONF = 0.2  # random yolov8n-face weights score every anchor near 0.5
+COSINE_MIN = 0.9999  # normalised face embeddings, JAX against the port
+ROW_MATCH = 0.98  # share of object and face rows that must match
+
+
+@pytest.fixture(scope="module")
+def visual_cache_dir(tmp_path_factory):
+    """yolov8n.pt, yolov8n-face.pt, resnet18_places365.pth and
+    arcface_r18.pth from the JAX package's seeded trees (the two ResNets
+    written in torch layout through the port's from_jax_params, whose key
+    mapping tests/test_torch_{places,faces}.py hold on their own)."""
+    d = tmp_path_factory.mktemp("torch_visual_models")
+    for name, classes in (("yolov8n", 80), ("yolov8n-face", 1)):
+        cfg = JaxYoloConfig("yolov8n", num_classes=classes)
+        sd = export_ultralytics_state_dict(init_yolo_params(cfg, seed=0), cfg)
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                   str(d / f"{name}.pt"))
+    torch.save(resnet_from_jax(init_resnet18_params(365, seed=0)).state_dict(),
+               str(d / "resnet18_places365.pth"))
+    torch.save(arcface_from_jax(init_face_embed_params(seed=0)).state_dict(),
+               str(d / "arcface_r18.pth"))
+    return str(d)
+
+
+def _jax_normalize(rgb):
+    return (rgb - jnp.asarray(JAX_IMAGENET_MEAN)) / jnp.asarray(JAX_IMAGENET_STD)
+
+
+def _jax_places_from_rgb(pparams, rgb, top_k):
+    b = rgb.shape[0]
+    imgs = jax.image.resize(rgb, (b, 224, 224, 3), method="bilinear")
+    probs = jax.nn.softmax(resnet18_forward(pparams, _jax_normalize(imgs)), axis=-1)
+    return jax.lax.top_k(probs, top_k)
+
+
+def _jax_detect_fp32(params, images, cfg, **kw):
+    """The JAX detect without the bf16 cast of its uint8 path."""
+    images = jnp.asarray(images)
+    if images.dtype == jnp.uint8:
+        images = images.astype(jnp.float32) / 255.0
+    return jax_detect(params, images, cfg, **kw)
+
+
+@partial(jax.jit, static_argnames=("top_k",))
+def _jax_places_i420_fp32(pparams, planes, top_k):
+    probs = jax.nn.softmax(resnet18_forward(
+        pparams, _jax_normalize(jax_i420_to_rgb(planes))), axis=-1)
+    return jax.lax.top_k(probs, top_k)
+
+
+@partial(jax.jit, static_argnames=("ycfg", "fcfg"))
+def _jax_detect_faces_i420_fp32(yparams, fparams, planes, face_idx, ycfg, fcfg,
+                                conf_threshold, face_conf):
+    rgb = jax_i420_to_rgb(planes)
+    return (jax_detect(yparams, rgb, ycfg, conf_threshold=conf_threshold),
+            jax_detect(fparams, rgb[face_idx], fcfg, conf_threshold=face_conf))
+
+
+@partial(jax.jit, static_argnames=("ycfg", "fcfg", "top_k"))
+def _jax_detect_places_faces_i420_fp32(yparams, pparams, fparams, planes, face_idx,
+                                       ycfg, fcfg, conf_threshold, top_k, face_conf):
+    rgb = jax_i420_to_rgb(planes)
+    det = jax_detect(yparams, rgb, ycfg, conf_threshold=conf_threshold)
+    sc, idx = _jax_places_from_rgb(pparams, rgb, top_k)
+    return det, sc, idx, jax_detect(fparams, rgb[face_idx], fcfg,
+                                    conf_threshold=face_conf)
+
+
+@partial(jax.jit, static_argnames=("ycfg", "conf_threshold", "top_k"))
+def _jax_detect_places_i420_fp32(yparams, pparams, planes, ycfg, conf_threshold,
+                                 top_k):
+    rgb = jax_i420_to_rgb(planes)
+    det = jax_detect(yparams, rgb, ycfg, conf_threshold=conf_threshold)
+    sc, idx = _jax_places_from_rgb(pparams, rgb, top_k)
+    return det, sc, idx
+
+
+def _jax_pass_at_fp32(monkeypatch):
+    """Every device program of the JAX pass without its bf16 casts (hazard
+    b: with random weights, rows compare at one precision only)."""
+    for name, twin in (("detect", _jax_detect_fp32),
+                       ("_detect_i420", _jax_detect_i420_fp32),
+                       ("_places_i420", _jax_places_i420_fp32),
+                       ("_detect_faces_i420", _jax_detect_faces_i420_fp32),
+                       ("_detect_places_faces_i420", _jax_detect_places_faces_i420_fp32),
+                       ("_detect_places_i420", _jax_detect_places_i420_fp32)):
+        monkeypatch.setattr(jax_combined, name, twin)
+
+
+def assert_face_rows_match(want, got):
+    """>= ROW_MATCH of the face rows matched (by frame, box and confidence);
+    on matched rows the same keys and cluster ids and, with embeddings, a
+    unit-norm embedding within COSINE_MIN of the JAX package's."""
+    assert len(want) > 0
+    pairs = _match_pairs(want, got)
+    assert len(pairs) >= ROW_MATCH * max(len(want), len(got)), \
+        (len(pairs), len(want), len(got))
+    for jp, tp in pairs:
+        assert set(tp) == set(jp)
+        assert tp["cluster_id"] == jp["cluster_id"]
+        if "embedding" in jp:
+            a, b = np.asarray(jp["embedding"]), np.asarray(tp["embedding"])
+            assert abs(np.linalg.norm(b) - 1.0) < 1e-4
+            assert float(a @ b) / (np.linalg.norm(a) * np.linalg.norm(b)) >= COSINE_MIN
+
+
+def _assert_visual_rows_match(want, got):
+    assert set(got) == set(want)
+    assert got["scene_detection"] == want["scene_detection"]
+    jrows, trows = want["object_detection"], got["object_detection"]
+    assert len(jrows) > 0
+    assert _match_rows(jrows, trows) >= ROW_MATCH * max(len(jrows), len(trows))
+    assert_face_rows_match(want["face_detection"], got["face_detection"])
+    assert all("embedding" in r["payload"] for r in got["face_detection"])
+    assert_place_rows_match(got["place_classification"], want["place_classification"])
+
+
+def _full_config(faces: dict | None = None, places: dict | None = None, **top):
+    return {"scene_detection": {}, "decode_fast": 0,
+            "object_detection": {"batch_size": 4},
+            "face_detection": {"batch_size": 4, "confidence_threshold": FACE_CONF,
+                               "embeddings": True, **(faces or {})},
+            "place_classification": {"batch_size": 4, **(places or {})}, **top}
+
+
+# (clip, config, the JAX device programs the route must reach). On the
+# 640x360 clip at 10 fps the scene cadence makes the base step 2 frames:
+# objects and places every 10, faces every 16 (1.6 s), 20 (2 s) or 30.
+_ROUTES = {
+    # places fuse into the object upload; 16 % 10 != 0: own face consumer
+    "fused_places": ("detector_clip", _full_config(faces={"frame_interval_s": 1.6}),
+                     {"_detect_places_i420", "_detect_i420"}),
+    # faces every 20 frames ride the object upload as a device-side gather
+    "fully_fused": ("detector_clip", _full_config(faces={"frame_interval_s": 2.0}),
+                    {"_detect_places_faces_i420"}),
+    # no rider, places every 20 frames: their own host-resized batches
+    "separate": ("detector_clip", _full_config(faces={"frame_interval_s": 2.0},
+                                               places={"frame_interval_s": 2.0},
+                                               fuse_faces=False),
+                 {"_detect_i420", "_places_i420"}),
+    # 64x64 frames are letterboxed: places resize the raw frames on the host
+    # and the rider's frames are gathered on the host
+    "letterbox": ("scene_video", _full_config(),
+                  {"_detect_i420", "_places_i420", "detect"}),
+}
+
+
+@pytest.mark.parametrize("route", sorted(_ROUTES))
+def test_visual_analysis_full_pass_matches_jax(route, request, visual_cache_dir,
+                                               monkeypatch):
+    clip_fixture, config, programs = _ROUTES[route]
+    clip = request.getfixturevalue(clip_fixture)
+    _jax_pass_at_fp32(monkeypatch)
+    jax_calls = _record_calls(monkeypatch, jax_combined, programs)
+    port_calls = _record_calls(monkeypatch, port_combined, programs)
+    want = jax_visual_analysis(clip, config, visual_cache_dir)
+    got = InferenceEngine(model_cache_dir=visual_cache_dir, device="cpu").run_task(
+        "visual_analysis", clip, config)
+    assert jax_calls == port_calls == programs  # both took the route named
+    _assert_visual_rows_match(want, got)
+
+
+def _record_calls(monkeypatch, module, names) -> set:
+    """Wrap module.<name> for each name; the returned set collects the names
+    called."""
+    calls = set()
+    for name in names:
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, (
+            lambda name, fn: lambda *a, **kw: (calls.add(name), fn(*a, **kw))[1])(name, fn))
+    return calls
+
+
+def test_fused_faces_match_separate_consumer(tmp_path, visual_cache_dir):
+    # the face rider (a device-side gather from the object upload) gives the
+    # same face stream as the separate face consumer: a >= 640-wide source
+    # decodes to detector scale and engages the fused I420 route
+    path = str(tmp_path / "wide.mp4")
+    _write_video(path, [(30, (200, 40, 40)), (30, (40, 200, 40))], fps=12,
+                 size=(960, 540), shapes=True)
+    cfg = {"decode_fast": 0,
+           "object_detection": {"batch_size": 8, "frame_interval_s": 1.0},
+           "face_detection": {"batch_size": 8, "frame_interval_s": 3.0,
+                              "confidence_threshold": FACE_CONF}}
+    engine = InferenceEngine(model_cache_dir=visual_cache_dir, device="cpu")
+    fused = engine.run_task("visual_analysis", path, cfg)["face_detection"]
+    separate = engine.run_task("visual_analysis", path,
+                               {**cfg, "fuse_faces": False})["face_detection"]
+    assert len(fused) == len(separate) > 0
+    assert {r["payload"]["frame_number"] for r in fused} == {0, 36}
+    for f, s in zip(fused, separate):
+        assert f["span_start_ms"] == s["span_start_ms"]
+        assert f["payload"]["cluster_id"] == s["payload"]["cluster_id"]
+        fb, sb = f["payload"]["bounding_box"], s["payload"]["bounding_box"]
+        for k in ("x", "y", "width", "height"):
+            assert abs(fb[k] - sb[k]) < 2.0, (fb, sb)
+
+
 # options of a task the port runs, still refused
-_STILL_REFUSED = {"transcription": {"compute_dtype": "int8"}}
+_STILL_REFUSED = {"transcription": {"compute_dtype": "int8"},
+                  "face_detection": {"int8": True},
+                  "object_detection": {"preprocess": "device"}}
 
 
 @pytest.mark.parametrize("task_type", [
     "metadata_extraction", "face_detection", "transcription", "ocr",
-    "place_classification", "semantic_indexing", "speaker_diarization",
+    "object_detection", "semantic_indexing", "speaker_diarization",
     "no_such_task"])
 def test_unported_tasks_raise(task_type, scene_video):
     with pytest.raises(ModelNotAvailable):
@@ -231,8 +450,8 @@ def test_unported_tasks_raise(task_type, scene_video):
 
 
 @pytest.mark.parametrize("config,needle", [
-    ({"scene_detection": {}, "face_detection": {}}, "face_detection"),
-    ({"object_detection": {}, "place_classification": {}}, "place_classification"),
+    ({"scene_detection": {}, "face_detection": {"int8": True}}, "int8"),
+    ({"object_detection": {}, "place_classification": {}, "ocr": {}}, "ocr"),
     ({"scene_detection": {}, "ocr": {}}, "ocr"),
     ({"object_detection": {"int8": True}}, "int8"),
     ({"object_detection": {"preprocess": "device"}}, "preprocess"),

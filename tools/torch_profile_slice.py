@@ -3,16 +3,20 @@
     python3 tools/torch_profile_slice.py [visual|transcription]
 
 visual (the default) uses chip_smoke.py's clip (60 s, 1280x720, 30 fps,
-planted colour cuts) and task config (scenes + YOLOv8n objects, batch 64,
-random weights). On the card it measures:
+planted colour cuts) and two task configs, random weights: scenes + YOLOv8n
+objects (batch 64), and the full pass of chip_smoke.py (scenes, objects,
+faces with embeddings, places, at their defaults). On the card it measures:
 
 1. decode only: the pass's own decode loop (same sampling grid, geometry and
    decode threads) with no consumer -- the host decode floor;
-2. the pass: one warm-up run, then one run under torch.profiler: wall time,
-   device busy time (union of the kernels' intervals), the device's idle
-   share of the wall, and device time by kernel name and by category (K1
-   scene_diff, K2 nms, matrix products, copies, the rest), so that K1's and
-   K2's device time inside the pass shows.
+2. each pass: one warm-up run; one run without the profiler, timing the
+   host spans after the decode loop (HOST_SPANS: the face embeddings'
+   re-decode with its crops, and the ArcFace part of it); then one run
+   under torch.profiler: wall time, device busy time (union of the
+   kernels' intervals), the device's idle share of the wall, and device
+   time by kernel name and by category (K1 scene_diff, K2 nms, matrix
+   products, copies, the rest), so that K1's and K2's device time inside
+   the pass shows.
 
 transcription uses chip_smoke.py's 150 s wav (4 voiced 30 s windows) and
 its full-width config (Whisper large-v3, random weights, bf16, batch 4, 224
@@ -40,8 +44,49 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402  (the clip and config of the smoke run)
 
-CONFIG = {"scene_detection": {}, "object_detection": {"batch_size": 64}}
+VISUAL_CONFIGS = {
+    "scenes+objects": {"scene_detection": {}, "object_detection": {"batch_size": 64}},
+    "full": chip_smoke.VISUAL_CONFIG,
+}
 DECODE_PROFILE_TOKENS = 32
+# (module, attribute) whose wall seconds a visual pass reports: the whole
+# post-pass embedding step, and the ArcFace batches inside it
+HOST_SPANS = (("eioku_tpu_torch.ml.combined", "attach_face_embeddings"),
+              ("eioku_tpu_torch.ml.detection", "_FaceCropCollector.attach_embeddings"))
+
+
+def _timed_spans(run) -> tuple[float, dict]:
+    """run() with each HOST_SPANS callable wrapped to add up its wall
+    seconds: (run's wall seconds, {attribute: seconds})."""
+    import importlib
+
+    import torch
+
+    spans, originals = {}, []
+    for mod_name, attr in HOST_SPANS:
+        owner = importlib.import_module(mod_name)
+        *path, name = attr.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        fn = getattr(owner, name)
+        originals.append((owner, name, fn))
+
+        def timed(*a, _fn=fn, _key=attr, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                spans[_key] = spans.get(_key, 0.0) + time.perf_counter() - t
+        setattr(owner, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, spans
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
 
 
 def decode_only_seconds(clip: str) -> tuple[float, int]:
@@ -208,24 +253,33 @@ def visual(card: str) -> dict:
         chip_smoke.write_clip(clip)
         decode_s, frames = decode_only_seconds(clip)
         engine = InferenceEngine(device="cuda")
-        engine.run_task("visual_analysis", clip, CONFIG)  # warm-up
-        torch.cuda.synchronize()
-        _cuda.reset_launch_counts()
-        _, prof, wall_s = _profiled(
-            lambda: engine.run_task("visual_analysis", clip, CONFIG))
-        launches = _cuda.launch_counts()
+        passes = {}
+        for name, config in VISUAL_CONFIGS.items():
+            engine.run_task("visual_analysis", clip, config)  # warm-up
+            plain_wall_s, spans = _timed_spans(
+                lambda: engine.run_task("visual_analysis", clip, config))
+            _cuda.reset_launch_counts()
+            _, prof, wall_s = _profiled(
+                lambda: engine.run_task("visual_analysis", clip, config))
+            passes[name] = {"config": config, "launches": _cuda.launch_counts(),
+                            "wall_s_no_profiler": plain_wall_s, "host_spans_s": spans,
+                            **_breakdown(prof, wall_s)}
     report = {"card": card, "mode": "visual",
               "clip_seconds": chip_smoke.CLIP_SECONDS, "sampled_frames": frames,
-              "decode_only_s": decode_s, "launches": launches,
-              "pass": _breakdown(prof, wall_s)}
+              "decode_only_s": decode_s, "passes": passes}
     print(f"card: {card}", file=sys.stderr)
-    print(f"decode only: {decode_s:.3f} s for {frames} sampled frames; pass: "
-          f"{wall_s:.3f} s wall, device busy {report['pass']['device_busy_s']:.3f} s",
-          file=sys.stderr)
-    for cat, ms in report["pass"]["device_ms_by_category"].items():
-        print(f"  {ms:9.3f} ms  [{cat}]", file=sys.stderr)
-    for name, ms in report["pass"]["device_ms_by_kernel"].items():
-        print(f"  {ms:9.3f} ms  {name[:100]}", file=sys.stderr)
+    print(f"decode only: {decode_s:.3f} s for {frames} sampled frames", file=sys.stderr)
+    for name, part in passes.items():
+        print(f"pass {name}: {part['wall_s']:.3f} s wall, device busy "
+              f"{part['device_busy_s']:.3f} s, idle share "
+              f"{part['device_idle_share']:.3f}, launches {part['launches']}; "
+              f"without the profiler {part['wall_s_no_profiler']:.3f} s, host spans "
+              f"{ {k: round(v, 3) for k, v in part['host_spans_s'].items()} }",
+              file=sys.stderr)
+        for cat, ms in part["device_ms_by_category"].items():
+            print(f"  {ms:9.3f} ms  [{cat}]", file=sys.stderr)
+        for kname, ms in part["device_ms_by_kernel"].items():
+            print(f"  {ms:9.3f} ms  {kname[:100]}", file=sys.stderr)
     return report
 
 
