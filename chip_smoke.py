@@ -13,7 +13,9 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
 2. K1 scene-diff kernel against its plain PyTorch version on the card, at the
    main path's chain shape [257, 46080] and a ragged one (odd N, D not a
    multiple of 4): max abs error <= 1e-6, then kernel / plain / library time
-   over four main-path chains cycled, so that L2 never holds the next input;
+   over four main-path chains cycled, so that L2 never holds the next input,
+   and the kernel's time replayed from a CUDA graph over the same chains
+   (device time without the wrapper's host cost);
 3. K2 NMS keep-mask kernel against its plain version at B = 64,
    K in {256, 300, 512, 1024} with padding tails: keep masks exactly equal;
    times over back-to-back calls at every K and, at K = 256 and 1024, also
@@ -69,6 +71,26 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    within 1e-3 and rows equal (where tokens first differ, the CPU's top-2
    log-prob margin there must be below 1e-3); once more with the
    temperature ladder on;
+4e. the host stack: a fresh SQLite database and the port's AppConfig
+   (combined_visual, the four visual sub-tasks at VISUAL_CONFIG plus
+   metadata_extraction; ocr inactive, since discovery would fold it into
+   visual_analysis, which the port refuses) over a folder holding the 60 s
+   clip; workers.main's discover_at_start and build_worker with the engine
+   on the card and max_jobs 1, then Worker.drain. Launch counts are zeroed
+   just before the drain and read just after: K1 once, K2 twice. Both tasks
+   must end COMPLETED; the database's artifacts of each sub type, in order,
+   must equal the rows built from what the engine returned inside the
+   worker; scene rows equal the CPU path's (phase 4); scene_ranges,
+   object_labels and face_clusters agree with the artifacts; the video's
+   duration is set from its metadata; jump finds the 20 s cut from 15 s.
+   Then one ad-hoc transcription job on the wav (the tiny pretrained path of
+   4d) through the producer: K3 launches, its rows equal the engine's, find
+   returns a hit for a word of them through FTS5, and the semantic_indexing
+   follow-up ends FAILED "not configured" (no index is built). Each task's
+   worker and engine walls are printed; their difference is the host
+   stack's own cost (database writes and projection sync). The same job
+   runs once more under EIOKU_PROFILE_DIR: its torch.profiler trace must
+   hold the engine thread's aten ops and K3's kernels;
 5. one JSON line {"kernels": [...]} with each kernel's launches in the
    measured run, max error, kernel / plain / bound / library times;
 6. the card's name and power limit (nvidia-smi), then, as the last line,
@@ -79,6 +101,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -265,6 +288,7 @@ def phase_k1(dev) -> dict:
         chains = [(chain,)] + [(torch.rand((n, d), generator=gen, device=dev),)
                                for _ in range(K1_TIMING_CHAINS - 1)]
         ms = cuda_ms(pair_diff, args=chains)
+        graph_ms = cuda_graph_ms(pair_diff, args=chains)
         plain_ms = cuda_ms(pair_diff_plain, args=chains)
         library_ms = cuda_ms(
             lambda c: F.pairwise_distance(c[:-1], c[1:], p=1.0, eps=0.0),
@@ -272,12 +296,13 @@ def phase_k1(dev) -> dict:
         nbytes = n * d * 4 + (n - 1) * 4
         ops = 3 * (n - 1) * d  # sub, abs, add per element pair
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": max(t_bytes, t_ops),
+        result = {"max_abs_err": err, "ms": ms, "cuda_graph_ms": graph_ms,
+                  "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                   "library_ms": library_ms}
-        log(f"K1 [{n}, {d}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"pairwise_distance {library_ms:.4f} ms, bound {result['bound_ms']:.4f} ms "
+        log(f"K1 [{n}, {d}]: kernel {ms:.5f} ms (calls), {graph_ms:.5f} ms (graph; "
+            f"{result['bound_ms'] / graph_ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+            f"pairwise_distance {library_ms:.4f} ms, bound {result['bound_ms']:.5f} ms "
             f"({nbytes / 1e6:.1f} MB)")
     return result
 
@@ -633,7 +658,11 @@ def phase_slice(dev, workdir: str) -> dict:
     cuts = write_clip(clip)
     log(f"clip: {CLIP_W}x{CLIP_H} {CLIP_FPS} fps {CLIP_SECONDS} s, {cuts} cuts, "
         f"written in {time.perf_counter() - t0:.1f} s")
-    engine = InferenceEngine(device="cuda")
+    # one model cache for the run: 4d writes whisper-tiny.npz here, and
+    # phase 4e's worker engine reads every model from it
+    cache = os.path.join(workdir, "models")
+    os.makedirs(cache, exist_ok=True)
+    engine = InferenceEngine(model_cache_dir=cache, device="cuda")
     runs = {}
 
     def run(task: str, cfg: dict, label: str):
@@ -745,7 +774,7 @@ def phase_slice(dev, workdir: str) -> dict:
             "rows": measured["rows"], "runs": runs,
             "nms_launches_per_run": {"visual measured": launches["nms"],
                                      "visual fully fused": fused_launches["nms"]},
-            "k2_faces": k2_faces, "k2_objects": k2_objects}
+            "k2_faces": k2_faces, "k2_objects": k2_objects, "cpu_scenes": cpu_scenes}
 
 
 def _card_vs_cpu(name: str, model, x) -> None:
@@ -970,7 +999,7 @@ def phase_card_vs_cpu(dev, wav: str, workdir: str) -> dict:
     from eioku_tpu_torch.models.whisper.weights import load_whisper_checkpoint
 
     cache = os.path.join(workdir, "models")
-    os.makedirs(cache)
+    os.makedirs(cache, exist_ok=True)
     cfg = WhisperConfig("tiny")
     tree = init_whisper(cfg, torch.Generator().manual_seed(0))
     np.savez(os.path.join(cache, "whisper-tiny.npz"),
@@ -1031,6 +1060,220 @@ def phase_card_vs_cpu(dev, wav: str, workdir: str) -> dict:
             "rows": len(rows["cpu"]), "margin": margin}
 
 
+def _fts5_enabled() -> bool:
+    import sqlite3
+
+    conn = sqlite3.connect(":memory:")
+    try:
+        return any("FTS5" in r[0] for r in conn.execute("PRAGMA compile_options"))
+    finally:
+        conn.close()
+
+
+def _check_rows_equal_engine(db, returned, producer: str, label: str) -> int:
+    """The DB's artifacts of each sub type, in order, equal the rows built
+    from what the engine returned inside the worker. Returns their count."""
+    from eioku_tpu_torch.domain.task_registry import TASK_REGISTRY
+
+    n = 0
+    for sub, results in returned.items():
+        artifact_type = TASK_REGISTRY[sub].artifact_types[0]
+        want = [(artifact_type, r["span_start_ms"], r["span_end_ms"], r["payload"], 1,
+                 producer) for r in results]
+        got = [(r[0], r[1], r[2], json.loads(r[3]), r[4], r[5]) for r in db.query(
+            "SELECT artifact_type, span_start_ms, span_end_ms, payload_json, "
+            "schema_version, producer FROM artifacts WHERE artifact_type = ? "
+            "ORDER BY rowid", (artifact_type,))]
+        if got != want:
+            raise AssertionError(f"{label}: the DB's {artifact_type} rows ({len(got)}) "
+                                 f"differ from the engine's ({len(want)})")
+        n += len(got)
+    log(f"{label}: the DB's rows equal the engine's ({n} artifacts, "
+        f"{ {sub: len(r) for sub, r in returned.items()} })")
+    return n
+
+
+def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
+                 card: str) -> dict:
+    """The port's host stack on the card: discovery, the queue, the worker's
+    process_ml_task, the artifact and projection rows, find and jump."""
+    import asyncio
+    import re
+    import uuid
+
+    import torch
+
+    from eioku_tpu_torch.api.app import build_context
+    from eioku_tpu_torch.config.settings import AppConfig
+    from eioku_tpu_torch.domain.models import TaskStatus, Video
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.ops import _cuda
+    from eioku_tpu_torch.queue.worker import WorkerSettings
+    from eioku_tpu_torch.utils.hashing import hash_file
+    from eioku_tpu_torch.workers.main import build_worker, discover_at_start
+
+    if not _fts5_enabled():
+        raise AssertionError("this host's sqlite3 is built without FTS5: the "
+                             "transcript and OCR projections need it")
+    root = os.path.join(workdir, "worker")
+    videos = os.path.join(root, "videos")
+    os.makedirs(videos)
+    os.link(clip, os.path.join(videos, "clip.mp4"))
+    cache = os.path.join(workdir, "models")  # whisper-tiny.npz from phase 4d
+    config = AppConfig(
+        scan_paths=[videos], database_url=f"sqlite:///{root}/eioku.db",
+        model_cache_dir=cache, combined_visual=True, semantic_search=False,
+        visual_search=False,
+        active_task_types=["scene_detection", "object_detection", "face_detection",
+                           "place_classification", "metadata_extraction"],
+        task_settings={k: v for k, v in VISUAL_CONFIG.items() if v})
+    ctx = build_context(config)
+    report = discover_at_start(ctx)
+    log(f"worker: discovery {report}")
+    engine = InferenceEngine(model_cache_dir=cache, model_profile=config.model_profile,
+                             device=dev)
+    returned, engine_s, worker_s = {}, {}, {}
+    run_task = engine.run_task
+
+    def recording_run_task(task_type, video_path, cfg):
+        t = time.perf_counter()
+        out = run_task(task_type, video_path, cfg)
+        torch.cuda.synchronize()
+        engine_s[task_type] = time.perf_counter() - t
+        returned[task_type] = out
+        return out
+    engine.run_task = recording_run_task
+    worker = build_worker(app_ctx=ctx, engine=engine,
+                          settings=WorkerSettings(max_jobs=1, poll_delay_s=0.01))
+    process = worker.functions["process_ml_task"]
+
+    async def timed_process(job_ctx, task_id, task_type, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return await process(job_ctx, task_id, task_type, *args, **kwargs)
+        finally:
+            worker_s[task_type] = time.perf_counter() - t
+    worker.register("process_ml_task", timed_process)
+
+    def drain(label: str) -> dict:
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        asyncio.run(worker.drain())
+        wall = time.perf_counter() - t
+        launches = _cuda.launch_counts()
+        log(f"worker {label}: drained in {wall:.3f} s; launches {launches}")
+        return launches
+
+    launches = drain("visual")
+    tasks = {t.task_type: t for t in ctx.tasks.find(limit=20)}
+    if sorted(tasks) != ["metadata_extraction", "visual_analysis"] or any(
+            t.status is not TaskStatus.COMPLETED for t in tasks.values()):
+        raise AssertionError("worker: tasks not all completed: " + str(
+            [(t.task_type, t.status.value, t.error) for t in tasks.values()]))
+    if launches["scene_diff"] != 1 or launches["nms"] != 2:
+        raise AssertionError(f"worker: expected K1 x1 and K2 x2 (objects + faces), "
+                             f"got {launches}")
+    producer = engine.producer_name
+    visual = returned["visual_analysis"]
+    n_visual = _check_rows_equal_engine(ctx.db, visual, producer, "worker visual_analysis")
+    _check_rows_equal_engine(ctx.db, {"metadata_extraction":
+                                      returned["metadata_extraction"]},
+                             producer, "worker metadata_extraction")
+    if visual["scene_detection"] != cpu_scenes:
+        raise AssertionError("worker: scene rows differ from the CPU path's")
+    video = ctx.videos.list()[0]
+    db = ctx.db
+    faces = visual["face_detection"]
+    _check_face_rows(faces, "worker visual_analysis")
+    counts = {t: db.scalar(f"SELECT COUNT(*) FROM {t}") for t in
+              ("scene_ranges", "object_labels", "face_clusters")}
+    clusters = {r[0] for r in db.query("SELECT DISTINCT cluster_id FROM face_clusters")}
+    if counts["scene_ranges"] != len(visual["scene_detection"]) \
+            or counts["object_labels"] != len(visual["object_detection"]) \
+            or not counts["object_labels"] or counts["face_clusters"] != len(faces) \
+            or clusters != {r["payload"]["cluster_id"] for r in faces}:
+        raise AssertionError(f"worker: projections {counts} disagree with the artifacts")
+    if video.duration_ms != CLIP_SECONDS * 1000:
+        raise AssertionError(f"worker: video duration_ms {video.duration_ms}")
+    hit = ctx.jump.jump(video.id, "scene", 15000)
+    if hit is None or abs(hit["start_ms"] - 2 * CUT_EVERY_S * 1000) > 300:
+        raise AssertionError(f"worker: next scene after 15 s is {hit}")
+    log(f"worker: projections {counts}, {len(clusters)} face clusters; next scene "
+        f"after 15 s starts at {hit['start_ms']} ms")
+
+    # an ad-hoc transcription job on the wav, through the producer
+    wav_video = Video(path=wav, file_hash=hash_file(wav), size_bytes=os.path.getsize(wav))
+    ctx.videos.save(wav_video)
+    task_id = str(uuid.uuid4())
+    ctx.producer.enqueue_task(task_id, "transcription", wav_video.id, wav, TINY_CONFIG)
+    tr_launches = drain("transcription")
+    transcript = returned["transcription"]
+    if tr_launches["flash_attention"] < 1:
+        raise AssertionError("worker: the transcription job never launched K3")
+    if ctx.tasks.get(task_id).status is not TaskStatus.COMPLETED:
+        raise AssertionError(f"worker: transcription {ctx.tasks.get(task_id).error}")
+    n_transcript = _check_rows_equal_engine(ctx.db, {"transcription": transcript},
+                                            producer, "worker transcription")
+    words = sorted({w for r in transcript
+                    for w in re.findall(r"[A-Za-z0-9]+", r["payload"]["text"])},
+                   key=lambda w: (-len(w), w))
+    if not words:
+        raise AssertionError(f"worker: no alphanumeric word in {len(transcript)} rows")
+    word = words[0]
+    fts = db.scalar("SELECT COUNT(*) FROM transcript_fts WHERE transcript_fts MATCH ?",
+                    (f'"{word}"',))
+    found = ctx.find.find(wav_video.id, word)
+    if not fts or not found:
+        raise AssertionError(f"worker: find {word!r}: {fts} FTS rows, hits {found}")
+    log(f"worker: find {word!r} in the transcript: {len(found)} hits ({fts} FTS rows), "
+        f"first at {found[0]['jump_to']}")
+    (sem,) = ctx.tasks.find(video_id=wav_video.id, task_type="semantic_indexing")
+    if sem.status is not TaskStatus.FAILED or "not configured" not in (sem.error or ""):
+        raise AssertionError(f"worker: semantic_indexing {sem.status} {sem.error}")
+    log(f"worker: semantic_indexing follow-up failed as expected: {sem.error}")
+    per_task = {t: {"worker_s": worker_s[t], "engine_s": engine_s[t],
+                    "host_stack_s": worker_s[t] - engine_s[t]}
+                for t in ("visual_analysis", "metadata_extraction", "transcription")}
+
+    # the same task re-run under EIOKU_PROFILE_DIR: the handler's
+    # maybe_profile must trace the engine's thread, K3 included; the walls'
+    # difference is what the trace costs
+    prof_dir = os.path.join(root, "profile")
+    os.environ["EIOKU_PROFILE_DIR"] = prof_dir
+    try:
+        ctx.tasks.update_status(task_id, TaskStatus.PENDING)
+        ctx.producer.enqueue_task(task_id, "transcription", wav_video.id, wav, TINY_CONFIG)
+        drain("transcription, profiled")
+    finally:
+        del os.environ["EIOKU_PROFILE_DIR"]
+    (trace,) = glob.glob(os.path.join(prof_dir, "transcription-*", "trace.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k3 = [k for k in kernels if "flash" in k]
+    ops = [e for e in events if str(e.get("name", "")).startswith("aten::")]
+    if not k3 or not ops:
+        raise AssertionError(f"worker: the profiled job's trace holds {len(ops)} aten ops "
+                             f"and {len(k3)} K3 kernels of {len(kernels)}")
+    per_task["transcription"]["profiled_worker_s"] = worker_s["transcription"]
+    log(f"worker transcription under the profiler: worker {worker_s['transcription']:.3f} s "
+        f"(unprofiled {per_task['transcription']['worker_s']:.3f} s); trace: {len(events)} "
+        f"events, {len(ops)} aten ops, {len(kernels)} kernels, {len(k3)} of them K3")
+    per_task["visual_analysis"].update({
+        "artifacts": n_visual,
+        "artifacts_per_s": n_visual / worker_s["visual_analysis"],
+        "host_stack_artifacts_per_s": n_visual / per_task["visual_analysis"]["host_stack_s"],
+        "video_s_per_s": CLIP_SECONDS / worker_s["visual_analysis"]})
+    per_task["transcription"].update({
+        "artifacts": n_transcript, "audio_s_per_s": AUDIO_SECONDS / worker_s["transcription"]})
+    for t, r in per_task.items():
+        log(f"worker {t}: worker {r['worker_s']:.3f} s, engine {r['engine_s']:.3f} s, "
+            f"host stack {r['host_stack_s'] * 1e3:.1f} ms ({card})")
+    return {"tasks": per_task, "launches": launches,
+            "transcription_launches": tr_launches, "find_word": word, "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -1058,25 +1301,32 @@ def main() -> int:
         tr = phase_transcription(dev, wav)
         dec = phase_production_decode(dev, wav)
         vs_cpu = phase_card_vs_cpu(dev, wav, workdir)
+        wk = phase_worker(dev, workdir, os.path.join(workdir, "clip.mp4"), wav,
+                          sl["cpu_scenes"], card)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
          "replaces": "eioku_tpu/ops/scene_diff.py:32",
-         "launches": sl["launches"]["scene_diff"], **k1},
+         "launches": sl["launches"]["scene_diff"],
+         "launches_through_worker": wk["launches"]["scene_diff"], **k1},
         {"name": "nms_keep", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/nms.cu",
          "replaces": "eioku_tpu/ops/nms.py:30",
-         "launches": sl["launches"]["nms"], **k2,
+         "launches": sl["launches"]["nms"],
+         "launches_through_worker": wk["launches"]["nms"], **k2,
          "on_face_candidates": sl["k2_faces"], "on_object_candidates": sl["k2_objects"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/flash_attention.cu",
          "replaces": "eioku_tpu/ops/flash_attention.py:27",
-         "launches": tr["launches"]["flash_attention"], **k3},
+         "launches": tr["launches"]["flash_attention"],
+         "launches_through_worker": wk["transcription_launches"]["flash_attention"], **k3},
     ]
     print(json.dumps({"slice": {k: v for k, v in sl.items()
-                                if k not in ("launches", "k2_faces", "k2_objects")}}))
+                                if k not in ("launches", "k2_faces", "k2_objects",
+                                             "cpu_scenes")}}))
     print(json.dumps({"transcription": {k: v for k, v in tr.items() if k != "launches"},
                       "production_decode": dec, "card_vs_cpu": vs_cpu}))
+    print(json.dumps({"worker": wk}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

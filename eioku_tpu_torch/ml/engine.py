@@ -2,8 +2,9 @@
 (port of eioku_tpu/ml/engine.py).
 
 Same dispatch keys as the JAX engine. The port implements
-scene_detection, object_detection, face_detection, place_classification,
-visual_analysis (scenes, objects, faces, places) and transcription; every
+scene_detection, metadata_extraction (host-only container parsing),
+object_detection, face_detection, place_classification, visual_analysis
+(scenes, objects, faces, places) and transcription; every
 other task type raises ModelNotAvailable, which the task handler records as
 a clean task failure.
 
@@ -58,6 +59,7 @@ class InferenceEngine:
         self.device = resolve_device(device)
         ported = {
             "scene_detection": self._scene_detection,
+            "metadata_extraction": self._metadata_extraction,
             "object_detection": self._object_detection,
             "face_detection": self._face_detection,
             "place_classification": self._place_classification,
@@ -96,6 +98,12 @@ class InferenceEngine:
             decode_fast=int(config.get("decode_fast", 1)),
             device=self.device,
         ))
+
+    def _metadata_extraction(self, video_path: str, config: dict) -> list[dict]:
+        from eioku_tpu_torch.ml.metadata import extract_metadata
+        payload = extract_metadata(video_path)
+        duration = payload.get("duration_ms") or 0
+        return [{"payload": payload, "span_start_ms": 0, "span_end_ms": duration}]
 
     def _object_detection(self, video_path: str, config: dict) -> list[dict]:
         from eioku_tpu_torch.ml.detection import run_object_detection

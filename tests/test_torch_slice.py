@@ -440,7 +440,7 @@ _STILL_REFUSED = {"transcription": {"compute_dtype": "int8"},
 
 
 @pytest.mark.parametrize("task_type", [
-    "metadata_extraction", "face_detection", "transcription", "ocr",
+    "face_detection", "transcription", "ocr",
     "object_detection", "semantic_indexing", "speaker_diarization",
     "no_such_task"])
 def test_unported_tasks_raise(task_type, scene_video):
@@ -499,7 +499,7 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "eioku_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) >= 85
     for f in files:
         for name in _imported_modules(f):
             root = name.split(".")[0]
