@@ -85,15 +85,45 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    duration is set from its metadata; jump finds the 20 s cut from 15 s.
    Then one ad-hoc transcription job on the wav (the tiny pretrained path of
    4d) through the producer: K3 launches, its rows equal the engine's, find
-   returns a hit for a word of them through FTS5, and the semantic_indexing
-   follow-up ends FAILED "not configured" (no index is built). Each task's
-   worker and engine walls are printed; their difference is the host
-   stack's own cost (database writes and projection sync). The same job
-   runs once more under EIOKU_PROFILE_DIR: its torch.profiler trace must
-   hold the engine thread's aten ops and K3's kernels;
-5. one JSON line {"kernels": [...]} with each kernel's launches in the
-   measured run, max error, kernel / plain / bound / library times;
-6. the card's name and power limit (nvidia-smi), then, as the last line,
+   returns a hit for a word of them through FTS5. semantic_search is on, so
+   build_context builds the semantic index (MiniLM-L6 from a written
+   checkpoint, bf16 on the card) and the transcription's semantic_indexing
+   follow-up must end COMPLETED, with one embedding_chunks row per chunk of
+   the engine's transcript rows (the task's default chunking), and a
+   search on the last chunk's text must return the video first at that
+   chunk's span. Each task's worker and engine walls are printed; their
+   difference is the host stack's own cost (database writes and projection
+   sync). The same job runs once more under EIOKU_PROFILE_DIR: its
+   torch.profiler trace must hold the engine thread's aten ops and K3's
+   kernels;
+5. the semantic layer on the card (TF32 off for every fp32 comparison):
+   5.1 MiniLM-L6 at full width on seeded ids [32, 256] with padded tails:
+   fp32 card vs CPU within 1e-4 per entry, bf16 card vs fp32 CPU cosine
+   >= 0.995 per embedding, no K3 launch; 5.2 the S >= 512 route at
+   [8, 512] with lengths (512, 130, 1, ...): K3 exactly 6 launches per
+   call (counts zeroed just before, read just after), the same
+   tolerances against the CPU route (K3's plain version), ms per bf16
+   call; 5.3 bench.py:790-855's corpus (11,000 segments of 10 words from
+   30) as transcript.segment artifacts through SemanticIndex.index_video
+   (chunk_chars 60, no overlap, no OCR; batch 256): chunks, wall, chunks/s
+   and K3 launches (0); embed only at batch 256 x S 256 bf16 (bench.py:
+   207-241) in chunks/s; the IVF index's build time, then the p50 of 30
+   searches (top 10) on chunk texts, each of which must find its own
+   chunk; 5.4 bench.py:1024-1043's clustered corpus at N = 10,000 and
+   262,144 x 384 (normalised, f16 on the card): _topk_cosine p50, card vs
+   CPU top-10 slots equal wherever the 10th score leads the 11th by more
+   than 1e-3, IvfIndex.build seconds and padded block bytes at 262,144,
+   IvfIndex.search p50 and recall@10 against the exact top 10 at the
+   default n_probe; 5.5 a written cross-encoder checkpoint and vocab in
+   a cache of their own: Reranker.available, a 64-candidate rerank whose
+   bf16 card logits hold within 5e-2 of the CPU's fp32 (fp32 card within
+   1e-4 x max |logit|), ms per rerank; 5.6 the phase's peak device
+   memory;
+6. JSON lines: each slice's results, phase 5's, each phase's seconds, and
+   {"kernels": [...]} with each kernel's launches in the measured run,
+   max error, kernel / plain / bound / library times (K3's entry also
+   with its launches per MiniLM call at S = 512 and on the indexing path);
+7. the card's name and power limit (nvidia-smi), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits nonzero and
@@ -157,6 +187,23 @@ TINY_CONFIG = {"model": "tiny", "language": "en", "compute_dtype": "float32",
                "temperatures": [], "max_tokens": 32, "no_speech_threshold": 2.0}
 TOKEN_MARGIN_TOL = 1e-3  # CPU top-2 log-prob gap where card and CPU part
 ENC_TOL = 1e-3  # tiny encoder, fp32 card (TF32 off) vs CPU
+# phase 5, the semantic layer: MiniLM-L6 and the cross-encoder at full width
+MINILM_CHECK = (32, 256)  # card vs CPU at the indexing path's S
+MINILM_LONG = (8, 512)  # the S >= 512 route through K3, with these lengths:
+MINILM_LONG_LENGTHS = (512, 130, 1, 300, 512, 64, 257, 400)
+MINILM_TOL = 1e-4  # fp32 card (TF32 off) vs CPU, per entry of unit vectors
+MINILM_COS = 0.995  # bf16 card vs fp32 CPU: cosine per embedding
+RERANK_TOL = 5e-2  # rerank logits, bf16 card vs fp32 CPU (they spread over ~2)
+# bench.py:790-855's search corpus: 11,000 segments of 10 words from 30
+SEM_SEGMENTS = 11000
+SEM_WORDS = ("meeting beach sunset dog cat birthday cake garden hiking snow city car "
+             "bridge concert guitar kitchen recipe soccer goal lake boat camera "
+             "interview presentation whiteboard laptop coffee airport train museum "
+             "painting").split()
+EMBED_BATCH, EMBED_SEQ, EMBED_BATCHES = 256, 256, 10  # bench.py:207-241
+RETRIEVAL_SIZES = (10_000, 262_144)  # bench.py:1046's N, and 192 MiB of f16
+N_QUERIES = 30
+GAP_TOL = 1e-3  # card vs CPU top-10 compared where the 10th score leads the 11th by more
 
 
 def log(msg: str) -> None:
@@ -1120,9 +1167,10 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
     os.makedirs(videos)
     os.link(clip, os.path.join(videos, "clip.mp4"))
     cache = os.path.join(workdir, "models")  # whisper-tiny.npz from phase 4d
+    write_minilm_checkpoint(cache)  # the semantic index's MiniLM
     config = AppConfig(
         scan_paths=[videos], database_url=f"sqlite:///{root}/eioku.db",
-        model_cache_dir=cache, combined_visual=True, semantic_search=False,
+        model_cache_dir=cache, combined_visual=True, semantic_search=True,
         visual_search=False,
         active_task_types=["scene_detection", "object_detection", "face_detection",
                            "place_classification", "metadata_extraction"],
@@ -1228,10 +1276,7 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
         raise AssertionError(f"worker: find {word!r}: {fts} FTS rows, hits {found}")
     log(f"worker: find {word!r} in the transcript: {len(found)} hits ({fts} FTS rows), "
         f"first at {found[0]['jump_to']}")
-    (sem,) = ctx.tasks.find(video_id=wav_video.id, task_type="semantic_indexing")
-    if sem.status is not TaskStatus.FAILED or "not configured" not in (sem.error or ""):
-        raise AssertionError(f"worker: semantic_indexing {sem.status} {sem.error}")
-    log(f"worker: semantic_indexing follow-up failed as expected: {sem.error}")
+    semantic = _check_semantic_followup(ctx, wav_video.id, transcript)
     per_task = {t: {"worker_s": worker_s[t], "engine_s": engine_s[t],
                     "host_stack_s": worker_s[t] - engine_s[t]}
                 for t in ("visual_analysis", "metadata_extraction", "transcription")}
@@ -1271,7 +1316,423 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
         log(f"worker {t}: worker {r['worker_s']:.3f} s, engine {r['engine_s']:.3f} s, "
             f"host stack {r['host_stack_s'] * 1e3:.1f} ms ({card})")
     return {"tasks": per_task, "launches": launches,
-            "transcription_launches": tr_launches, "find_word": word, "card": card}
+            "transcription_launches": tr_launches, "find_word": word,
+            "semantic_indexing": semantic, "card": card}
+
+
+def _check_semantic_followup(ctx, video_id: str, transcript: list) -> dict:
+    """The transcription's semantic_indexing follow-up completed on the
+    card's index: one embedding_chunks row per chunk of the engine's
+    transcript rows (the task's default chunking), and a search on a
+    chunk's text returns its video at the chunk's span."""
+    from eioku_tpu_torch.domain.models import TaskStatus
+    from eioku_tpu_torch.index.semantic import chunk_segments
+
+    (sem,) = ctx.tasks.find(video_id=video_id, task_type="semantic_indexing")
+    if sem.status is not TaskStatus.COMPLETED:
+        raise AssertionError(f"worker: semantic_indexing {sem.status} {sem.error}")
+    cfg = ctx.config.settings_for("semantic_indexing")
+    chunks = chunk_segments([{"text": r["payload"]["text"], "start_ms": r["span_start_ms"],
+                              "end_ms": r["span_end_ms"]} for r in transcript],
+                            cfg["chunk_chars"], cfg["overlap_chars"])
+    rows = [tuple(r) for r in ctx.db.query(
+        "SELECT text, start_ms, end_ms FROM embedding_chunks WHERE asset_id = ? "
+        "ORDER BY slot", (video_id,))]
+    if rows != [(c["text"], c["start_ms"], c["end_ms"]) for c in chunks] or not rows:
+        raise AssertionError(f"worker: {len(rows)} embedding_chunks rows for "
+                             f"{len(chunks)} chunks of the engine's transcript")
+    index = ctx.extra["semantic_index"]
+    if index._dev.type != "cuda":
+        raise AssertionError(f"worker: the semantic index ran on {index._dev}")
+    text, start_ms, end_ms = rows[-1]
+    hits = index.search(text, top_k=len(rows))
+    if not hits or hits[0]["video_id"] != video_id or hits[0]["text"] != text \
+            or hits[0]["jump_to"] != {"start_ms": start_ms, "end_ms": end_ms}:
+        raise AssertionError(f"worker: search for the last chunk's text gave {hits[:2]}")
+    log(f"worker: semantic_indexing completed on the card: {len(rows)} chunks; search "
+        f"finds the last one first (score {hits[0]['score']:.4f}) at {hits[0]['jump_to']}")
+    return {"chunks": len(rows), "top_score": hits[0]["score"]}
+
+
+def write_minilm_checkpoint(cache: str, seed: int = 0) -> None:
+    """A seeded full-width MiniLM as `minilm-l6/pytorch_model.bin` in the
+    sentence-transformers layout ('0.auto_model.' prefix). Its token
+    embeddings are scaled by 100, so that its embeddings tell texts apart:
+    the 0.05-scaled random init maps every text to cosine ~0.998 of every
+    other."""
+    import torch
+
+    from eioku_tpu_torch.models.embed.minilm import MiniLMConfig, init_minilm
+
+    sd = init_minilm(MiniLMConfig(), torch.Generator().manual_seed(seed)).state_dict()
+    sd["embeddings.word_embeddings.weight"] = sd["embeddings.word_embeddings.weight"] * 100
+    os.makedirs(os.path.join(cache, "minilm-l6"), exist_ok=True)
+    torch.save({"0.auto_model." + k: v for k, v in sd.items()},
+               os.path.join(cache, "minilm-l6", "pytorch_model.bin"))
+
+
+def write_cross_encoder_checkpoint(cache: str, words: list[str]) -> None:
+    """A seeded full-width cross-encoder in HF BertForSequenceClassification
+    layout, and a vocab.txt of `words` in this cache of its own (a vocab in
+    a cache changes the MiniLM tokenizer too)."""
+    import torch
+
+    from eioku_tpu_torch.models.embed.cross_encoder import (
+        CrossEncoderConfig,
+        init_cross_encoder,
+    )
+
+    sd = init_cross_encoder(CrossEncoderConfig(), torch.Generator().manual_seed(5)).state_dict()
+    sd["embeddings.word_embeddings.weight"] = sd["embeddings.word_embeddings.weight"] * 100
+    os.makedirs(os.path.join(cache, "msmarco-minilm-l6"), exist_ok=True)
+    torch.save({("" if k.startswith("classifier") else "bert.") + k: v for k, v in sd.items()},
+               os.path.join(cache, "msmarco-minilm-l6", "pytorch_model.bin"))
+    with open(os.path.join(cache, "vocab.txt"), "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + words) + "\n")
+
+
+def _ids_with_lengths(b: int, s: int, lengths, vocab: int, seed: int):
+    """Seeded token ids [b, s] and a mask with the given valid lengths."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, vocab, (b, s), generator=g)
+    mask = (torch.arange(s)[None, :] < torch.tensor(lengths)[:, None]).to(torch.int32)
+    return ids * mask, mask
+
+
+def _minilm_card_vs_cpu(cpu, card, ids, mask, dev, label: str) -> dict:
+    """fp32 card (TF32 off) within MINILM_TOL of the CPU; bf16 card within
+    cosine MINILM_COS of the CPU. Counts K3's launches of each card call."""
+    from dataclasses import replace
+
+    import torch
+
+    from eioku_tpu_torch.models.embed.minilm import minilm_embed
+    from eioku_tpu_torch.ops import _cuda
+
+    fp32 = replace(card.cfg, compute_dtype="float32")
+    want = minilm_embed(cpu, ids, mask)
+    out = {}
+    for name, cfg in (("float32", fp32), ("bfloat16", replace(fp32, compute_dtype="bfloat16"))):
+        card.cfg = cfg
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        got = minilm_embed(card, ids.to(dev), mask.to(dev))
+        torch.cuda.synchronize()
+        out[f"k3_launches_{name}"] = _cuda.launch_counts()["flash_attention"]
+        got = got.cpu()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"MiniLM {label} {name}: non-finite embeddings")
+        if name == "float32":
+            out["fp32_max_abs_err"] = float((got - want).abs().max())
+        else:
+            out["bf16_min_cosine"] = float((got * want).sum(-1).min())
+    log(f"MiniLM {label}: fp32 card vs CPU max abs err {out['fp32_max_abs_err']:.3e} "
+        f"(tolerance {MINILM_TOL}), bf16 card vs fp32 CPU min cosine "
+        f"{out['bf16_min_cosine']:.6f} (at least {MINILM_COS}); K3 launches "
+        f"{out['k3_launches_float32']} (fp32), {out['k3_launches_bfloat16']} (bf16)")
+    if not out["fp32_max_abs_err"] <= MINILM_TOL or not out["bf16_min_cosine"] >= MINILM_COS:
+        raise AssertionError(f"MiniLM {label}: card and CPU disagree: {out}")
+    return out
+
+
+def _p50_ms(times: list[float]) -> float:
+    return sorted(times)[len(times) // 2] * 1e3
+
+
+def _embedding_like_corpus(n: int, dim: int, n_queries: int, seed: int = 0):
+    """bench.py:1024-1043: 300 topic clusters with spread 0.6, queries =
+    corpus point + noise 0.4; here L2-normalised, as the index stores them."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((300, dim)).astype(np.float32)
+    assign = rng.integers(0, 300, n)
+    corpus = centers[assign] + 0.6 * rng.standard_normal((n, dim)).astype(np.float32)
+    qi = rng.integers(0, n, n_queries)
+    queries = corpus[qi] + 0.4 * rng.standard_normal((n_queries, dim)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    return corpus, queries
+
+
+def phase_semantic_models(dev) -> dict:
+    """5.1 MiniLM at full width card vs CPU at [32, 256]; 5.2 the S = 512
+    route: K3 six times per call, card vs CPU, ms per call."""
+    import torch
+
+    from eioku_tpu_torch.models.embed.minilm import MiniLMConfig, init_minilm, minilm_embed
+
+    cfg = MiniLMConfig()
+    cpu = init_minilm(cfg, torch.Generator().manual_seed(0))
+    card = init_minilm(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.default_rng(3)
+    b, s = MINILM_CHECK
+    lengths = [s] + [int(x) for x in rng.integers(2, s, b - 1)]
+    short = _minilm_card_vs_cpu(cpu, card, *_ids_with_lengths(b, s, lengths, cfg.vocab_size, 1),
+                                dev, f"[{b}, {s}]")
+    if short["k3_launches_float32"] or short["k3_launches_bfloat16"]:
+        raise AssertionError("MiniLM at S = 256 must take the plain route, not K3")
+    b, s = MINILM_LONG
+    ids, mask = _ids_with_lengths(b, s, MINILM_LONG_LENGTHS, cfg.vocab_size, 2)
+    long = _minilm_card_vs_cpu(cpu, card, ids, mask, dev, f"[{b}, {s}] lengths "
+                               f"{list(MINILM_LONG_LENGTHS)}")
+    if long["k3_launches_float32"] != cfg.n_layers or long["k3_launches_bfloat16"] != cfg.n_layers:
+        raise AssertionError(f"MiniLM at S = 512 launched K3 {long} times, not once per layer")
+    ids, mask = ids.to(dev), mask.to(dev)  # card.cfg is bf16 after the check
+    ms = cuda_ms(lambda: minilm_embed(card, ids, mask), iters=20, warmup=3)
+    log(f"MiniLM [{b}, {s}] bf16 through K3: {ms:.4f} ms per call")
+    return {"s256": short, "s512": long, "s512_bf16_ms_per_call": ms}
+
+
+def phase_semantic_index(dev, root: str) -> dict:
+    """5.3 bench.py's search corpus through SemanticIndex.index_video on the
+    card, embed-only throughput, and search p50 on the IVF route."""
+    import uuid
+
+    import torch
+
+    from eioku_tpu_torch.api.app import build_context
+    from eioku_tpu_torch.config.settings import AppConfig
+    from eioku_tpu_torch.domain.models import Video
+    from eioku_tpu_torch.index.semantic import SemanticIndex
+    from eioku_tpu_torch.models.embed.minilm import minilm_embed
+    from eioku_tpu_torch.ops import _cuda
+    from eioku_tpu_torch.utils.device import compute_dtype_name
+    from eioku_tpu_torch.utils.hashing import compute_config_hash
+    from eioku_tpu_torch.workers.task_handler import build_envelopes
+
+    cache = os.path.join(root, "models")
+    write_minilm_checkpoint(cache)
+    ctx = build_context(AppConfig(
+        scan_paths=[], database_url=f"sqlite:///{root}/s.db", auto_discover=False,
+        semantic_search=False, visual_search=False, model_cache_dir=cache,
+        index_dir=os.path.join(root, "index")))
+    index = SemanticIndex(ctx, batch_size=EMBED_BATCH, device=dev)  # bench.py's batch
+    video = Video(path=os.path.join(root, "corpus.mp4"), file_hash="bench",
+                  duration_ms=3_600_000)
+    ctx.videos.save(video)
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    results = []
+    for i in range(SEM_SEGMENTS):
+        s_ms, e_ms = i * 4000, (i + 1) * 4000
+        results.append({"payload": {"text": " ".join(rng.choice(SEM_WORDS, 10)),
+                                    "language": "en", "start_ms": s_ms, "end_ms": e_ms,
+                                    "confidence": 0.9},
+                        "span_start_ms": s_ms, "span_end_ms": e_ms})
+    ctx.artifacts.batch_create(build_envelopes(
+        results, video_id=video.id, artifact_type="transcript.segment",
+        run_id=str(uuid.uuid4()), producer="smoke", producer_version="0",
+        model_profile="balanced", config_hash=compute_config_hash({}), input_hash="smoke"))
+    insert_s = time.perf_counter() - t
+    t = time.perf_counter()
+    index._ensure_model()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    if not index.pretrained or index._cfg.compute_dtype != compute_dtype_name(dev):
+        raise AssertionError("the index did not load the written checkpoint in the "
+                             "device's compute type (bf16 on the card)")
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    chunks = index.index_video(video.id, {"chunk_chars": 60, "overlap_chars": 0,
+                                          "index_ocr": False})
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t
+    k3_indexing = _cuda.launch_counts()["flash_attention"]
+    rows = ctx.db.scalar("SELECT COUNT(*) FROM embedding_chunks")
+    log(f"semantic index: {SEM_SEGMENTS} segments inserted in {insert_s:.2f} s, model "
+        f"loaded in {load_s:.2f} s; index_video: {chunks} chunks in {index_s:.3f} s "
+        f"({chunks / index_s:.1f} chunks/s), {rows} embedding_chunks rows, "
+        f"K3 launches {k3_indexing}")
+    if rows != chunks or chunks < index.IVF_THRESHOLD or k3_indexing:
+        raise AssertionError(f"indexing: {chunks} chunks, {rows} rows, K3 {k3_indexing}")
+
+    # embed only: bench.py's batch 256 x S 256 bf16, all tokens valid
+    model = index._model
+    g = torch.Generator().manual_seed(0)
+    inputs = [torch.randint(0, model.cfg.vocab_size, (EMBED_BATCH, EMBED_SEQ),
+                            generator=g).to(dev) for _ in range(EMBED_BATCHES)]
+    mask = torch.ones((EMBED_BATCH, EMBED_SEQ), dtype=torch.int32, device=dev)
+    for x in inputs[:2]:
+        minilm_embed(model, x, mask)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for x in inputs[2:]:
+        out = minilm_embed(model, x, mask)
+    float(out.sum())
+    embed_cps = (EMBED_BATCHES - 2) * EMBED_BATCH / (time.perf_counter() - t)
+    log(f"embed only, batch {EMBED_BATCH} x S {EMBED_SEQ} bf16: {embed_cps:.1f} chunks/s")
+
+    # search: the IVF index is built by the first search; build it apart
+    corpus = index._corpus()
+    t = time.perf_counter()
+    ivf = index._ivf(corpus)
+    torch.cuda.synchronize()
+    ivf_build_s = time.perf_counter() - t
+    if ivf is None:
+        raise AssertionError("the corpus did not take the IVF route")
+    texts = [r[0] for r in ctx.db.query(
+        "SELECT text FROM embedding_chunks ORDER BY slot")]
+    t = time.perf_counter()
+    index._tokenizer.encode_batch(texts)  # the host's share of index_video
+    tokenize_s = time.perf_counter() - t
+    queries = [texts[int(i)] for i in rng.integers(0, len(texts), N_QUERIES)]
+    embed_times, times, first = [], [], 0
+    for q in queries:
+        t = time.perf_counter()
+        index.embed_texts([q])  # a batch padded to 256 rows, as search embeds it
+        embed_times.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        hits = index.search(q, top_k=10)
+        times.append(time.perf_counter() - t)
+        if len(hits) != 10 or not all(math.isfinite(h["score"]) for h in hits) \
+                or hits[0]["video_id"] != video.id:
+            raise AssertionError(f"search {q!r}: {hits[:2]}")
+        if q not in [h["text"] for h in hits]:
+            raise AssertionError(f"search {q!r}: its own chunk is not among the hits")
+        first += hits[0]["text"] == q
+    p50, embed_p50 = _p50_ms(times), _p50_ms(embed_times)
+    log(f"tokenizing the {len(texts)} chunks alone: {tokenize_s:.3f} s; embedding "
+        f"them at the embed-only rate: {len(texts) / embed_cps:.3f} s")
+    log(f"search on the IVF route ({ivf.k} clusters, built in {ivf_build_s:.3f} s): "
+        f"p50 {p50:.2f} ms over {N_QUERIES} queries (top 10, query embed and row "
+        f"join included; the query's embedding alone p50 {embed_p50:.2f} ms); the "
+        f"query's own chunk first in {first}/{N_QUERIES}")
+    return {"segments": SEM_SEGMENTS, "chunks": chunks, "model_load_s": load_s,
+            "index_video_s": index_s, "index_chunks_per_s": chunks / index_s,
+            "tokenize_s": tokenize_s, "k3_launches_indexing": k3_indexing,
+            "embed_only_chunks_per_s": embed_cps, "ivf_clusters": ivf.k,
+            "ivf_build_s": ivf_build_s, "search_p50_ms": p50,
+            "query_embed_p50_ms": embed_p50, "search_own_chunk_first": first,
+            "texts": texts}
+
+
+def phase_retrieval(dev) -> dict:
+    """5.4 _topk_cosine and the IVF index at scale on bench.py's clustered
+    corpus; card vs CPU top-10 at N = 10,000."""
+    import torch
+
+    from eioku_tpu_torch.index.ivf import IvfIndex, top_k
+    from eioku_tpu_torch.index.semantic import _topk_cosine
+
+    out = {}
+    for n in RETRIEVAL_SIZES:
+        v, queries = _embedding_like_corpus(n, 384, N_QUERIES)
+        corpus = torch.from_numpy(v.astype(np.float16)).to(dev)
+        qs = [torch.from_numpy(q).to(dev) for q in queries]
+        _topk_cosine(corpus, qs[0], 10)
+        times = []
+        for q in qs:
+            t = time.perf_counter()
+            scores, idx = _topk_cosine(corpus, q, 10)
+            float(scores.sum()) + int(idx[0])  # completion and transfer
+            times.append(time.perf_counter() - t)
+        r = {"topk_cosine_p50_ms": _p50_ms(times)}
+        if n == RETRIEVAL_SIZES[0]:
+            cpu_corpus, checked = corpus.cpu(), 0
+            for q in queries:
+                want_s, want_i = _topk_cosine(cpu_corpus, torch.from_numpy(q), 11)
+                got_s, got_i = _topk_cosine(corpus, torch.from_numpy(q).to(dev), 11)
+                if float(want_s[9] - want_s[10]) > GAP_TOL:
+                    checked += 1
+                    if not torch.equal(got_i[:10].cpu(), want_i[:10]):
+                        raise AssertionError(f"top-10 slots differ card vs CPU at N = {n}")
+            if not checked:
+                raise AssertionError("no query had a clear 10th rank to compare")
+            r["card_vs_cpu_queries_compared"] = checked
+        else:
+            vf = torch.from_numpy(v).to(dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ivf = IvfIndex.build(vf)
+            torch.cuda.synchronize()
+            r["ivf_build_s"] = time.perf_counter() - t
+            r["ivf_clusters"] = ivf.k
+            r["ivf_block_bytes"] = ivf.blocks.numel() * ivf.blocks.element_size()
+            n_probe = max(ivf.k // 8, 1)
+            times, hits = [], 0
+            for q in queries:
+                t = time.perf_counter()
+                _, slots = ivf.search(q, top_k=10)
+                times.append(time.perf_counter() - t)
+                exact = top_k(vf @ torch.from_numpy(q).to(dev), 10)[1].cpu().numpy()
+                hits += len(set(exact.tolist()) & {int(x) for x in slots if x >= 0})
+            r.update({"ivf_search_p50_ms": _p50_ms(times), "ivf_n_probe": n_probe,
+                      "ivf_recall_at_10": hits / (10 * len(queries))})
+            del vf, ivf
+        log(f"retrieval N = {n}: {r}")
+        out[str(n)] = r
+        del corpus
+    return out
+
+
+def phase_rerank(dev, root: str, texts: list[str]) -> dict:
+    """5.5 the cross-encoder reranker on a 64-candidate bucket, card vs CPU."""
+    from dataclasses import replace
+
+    import torch
+
+    from eioku_tpu_torch.index.rerank import Reranker
+    from eioku_tpu_torch.models.embed.cross_encoder import cross_encoder_score
+
+    cache = os.path.join(root, "rerank_models")
+    write_cross_encoder_checkpoint(cache, list(SEM_WORDS))
+    card, cpu = Reranker(cache, device=dev), Reranker(cache, device="cpu")
+    if not card.available or not cpu.available:
+        raise AssertionError("the reranker did not load its written checkpoint and vocab")
+    results = [{"text": t, "i": i} for i, t in enumerate(texts[:64])]
+    query = "beach sunset dog"
+    got = {r["i"]: r["rerank_score"] for r in card.rerank(query, results, 64)}
+    want = {r["i"]: r["rerank_score"] for r in cpu.rerank(query, results, 64)}
+    bf16_err = max(abs(got[i] - want[i]) for i in want)
+    spread = max(want.values()) - min(want.values())
+    # the same pairs through the card's model at fp32 (TF32 off)
+    model, tok, _ = card._model
+    ids, types, mask = (torch.from_numpy(a) for a in tok.encode_pairs(
+        query, [r["text"] for r in results]))
+    bf16_cfg = model.cfg
+    model.cfg = replace(bf16_cfg, compute_dtype="float32")
+    try:
+        fp32 = cross_encoder_score(model, ids.to(dev), types.to(dev), mask.to(dev)).cpu()
+    finally:
+        model.cfg = bf16_cfg
+    ref = cross_encoder_score(cpu._model[0], ids, types, mask)
+    fp32_err = float((fp32 - ref).abs().max())
+    scale = max(float(ref.abs().max()), 1.0)
+    for _ in range(2):
+        card.rerank(query, results, 64)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        card.rerank(query, results, 64)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / 10 * 1e3
+    log(f"rerank 64 candidates: bf16 card vs fp32 CPU max logit err {bf16_err:.3e} "
+        f"(tolerance {RERANK_TOL}; logits spread {spread:.3f}); fp32 card vs CPU "
+        f"{fp32_err:.3e} (tolerance {MINILM_TOL} x {scale:.2f}); {ms:.2f} ms per rerank")
+    if not bf16_err <= RERANK_TOL or not fp32_err <= MINILM_TOL * scale:
+        raise AssertionError("rerank logits differ card vs CPU")
+    return {"candidates": 64, "bf16_max_logit_err": bf16_err, "logit_spread": spread,
+            "fp32_max_logit_err": fp32_err, "ms_per_rerank": ms}
+
+
+def phase_semantic(dev, workdir: str, card: str) -> dict:
+    """Phase 5: the semantic layer on the card."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    root = os.path.join(workdir, "semantic")
+    os.makedirs(root)
+    models = phase_semantic_models(dev)
+    index = phase_semantic_index(dev, root)
+    retrieval = phase_retrieval(dev)
+    rerank = phase_rerank(dev, root, index.pop("texts"))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"semantic phase peak device memory {peak:.1f} MiB ({card})")
+    return {"models": models, "index": index, "retrieval": retrieval, "rerank": rerank,
+            "peak_mib": peak, "card": card}
 
 
 def main() -> int:
@@ -1289,20 +1750,31 @@ def main() -> int:
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    phase_build()
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
-    k3 = phase_k3(dev)
-    phase_logits_reference(dev)
+    seconds = {}
+
+    def timed(name: str, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t
+            log(f"phase {name}: {seconds[name]:.1f} s")
+
+    timed("1 build", phase_build)
+    k1 = timed("2 K1", phase_k1, dev)
+    k2 = timed("3 K2", phase_k2, dev)
+    k3 = timed("3b K3", phase_k3, dev)
+    timed("4 fp32 references", phase_logits_reference, dev)
     with tempfile.TemporaryDirectory(prefix="eioku_smoke_") as workdir:
-        sl = phase_slice(dev, workdir)
+        sl = timed("4 visual", phase_slice, dev, workdir)
         wav = os.path.join(workdir, "speech.wav")
         write_speech_wav(wav)
-        tr = phase_transcription(dev, wav)
-        dec = phase_production_decode(dev, wav)
-        vs_cpu = phase_card_vs_cpu(dev, wav, workdir)
-        wk = phase_worker(dev, workdir, os.path.join(workdir, "clip.mp4"), wav,
-                          sl["cpu_scenes"], card)
+        tr = timed("4b transcription", phase_transcription, dev, wav)
+        dec = timed("4c production decode", phase_production_decode, dev, wav)
+        vs_cpu = timed("4d card vs CPU", phase_card_vs_cpu, dev, wav, workdir)
+        wk = timed("4e worker", phase_worker, dev, workdir,
+                   os.path.join(workdir, "clip.mp4"), wav, sl["cpu_scenes"], card)
+        sem = timed("5 semantic", phase_semantic, dev, workdir, card)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
@@ -1319,7 +1791,10 @@ def main() -> int:
          "source": "eioku_tpu_torch/csrc/flash_attention.cu",
          "replaces": "eioku_tpu/ops/flash_attention.py:27",
          "launches": tr["launches"]["flash_attention"],
-         "launches_through_worker": wk["transcription_launches"]["flash_attention"], **k3},
+         "launches_through_worker": wk["transcription_launches"]["flash_attention"],
+         "launches_per_minilm_call_s512": sem["models"]["s512"]["k3_launches_bfloat16"],
+         "launches_on_indexing_path": sem["index"]["k3_launches_indexing"],
+         "minilm_s512_ms_per_call": sem["models"]["s512_bf16_ms_per_call"], **k3},
     ]
     print(json.dumps({"slice": {k: v for k, v in sl.items()
                                 if k not in ("launches", "k2_faces", "k2_objects",
@@ -1327,6 +1802,8 @@ def main() -> int:
     print(json.dumps({"transcription": {k: v for k, v in tr.items() if k != "launches"},
                       "production_decode": dec, "card_vs_cpu": vs_cpu}))
     print(json.dumps({"worker": wk}))
+    print(json.dumps({"semantic": sem}))
+    print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,18 @@
 Port of eioku_tpu/api/app.py:40-110. build_context registers the schemas,
 checks and salvages a SQLite file, runs the migrations and wires the
 repositories, the projection sync, discovery, find, jump and the reconciler,
-as the JAX package's does. Two parts wait for later slices:
+as the JAX package's does. When config.semantic_search is on it puts the
+semantic index (MiniLM, index/semantic.py) and the cross-encoder reranker
+(index/rerank.py) into ctx.extra, on `device` (None is CUDA, resolved when a
+model is first needed, so a context on a host without a card works for
+everything else and its indexing tasks raise). Two parts wait for later
+slices:
 
 - create_app and the HTTP controllers (the API is not ported yet), so this
   module imports neither web/ nor api/controllers;
-- the semantic (MiniLM + reranker) and visual (CLIP) indices. When
-  config.semantic_search or config.visual_search asks for one, a warning
-  names it and none is built, so a semantic_indexing or visual_indexing task
-  fails with the task handler's "not configured" error.
+- the visual (CLIP) index. When config.visual_search asks for it, a warning
+  names it and none is built, so a visual_indexing task fails with the task
+  handler's "not configured" error.
 """
 from __future__ import annotations
 
@@ -64,7 +68,8 @@ class AppContext:
 
 def build_context(config: AppConfig | None = None,
                   db: Database | None = None,
-                  producer: JobProducer | None = None) -> AppContext:
+                  producer: JobProducer | None = None,
+                  device: str | None = None) -> AppContext:
     config = config or AppConfig()
     register_all_schemas()
     recovered = False
@@ -102,10 +107,12 @@ def build_context(config: AppConfig | None = None,
         jump=JumpNavigationService(artifacts, policies),
         reconciler=Reconciler(tasks, videos, producer),
     )
-    missing = [name for name, wanted in (
-        ("semantic index (MiniLM + reranker)", config.semantic_search),
-        ("visual index (CLIP)", getattr(config, "visual_search", False))) if wanted]
-    if missing:
-        log.warning("not built, not ported yet: %s; its indexing tasks fail as "
-                    "not configured", ", ".join(missing))
+    if config.semantic_search:
+        from eioku_tpu_torch.index.rerank import Reranker
+        from eioku_tpu_torch.index.semantic import SemanticIndex
+        ctx.extra["semantic_index"] = SemanticIndex(ctx, device=device)
+        ctx.extra["reranker"] = Reranker(config.model_cache_dir, device=device)
+    if getattr(config, "visual_search", False):
+        log.warning("not built, not ported yet: visual index (CLIP); its "
+                    "indexing tasks fail as not configured")
     return ctx

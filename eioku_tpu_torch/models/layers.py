@@ -12,9 +12,10 @@ the same torch padding (`conv`), batch norm at the torchvision/insightface eps
 before a padded conv, where a fold is not exact), the k3 s2 p1 max pool and a
 per-channel `PReLU`.
 
-Transformers (Whisper): `layer_norm`, `Linear` and `gelu` round where the
-JAX package's `layernorm`, `linear` and `jax.nn.gelu` round, so a bf16 model
-computes what the JAX package's bf16 model computes.
+Transformers (Whisper, MiniLM): `layer_norm`, `Linear`, `gelu` (tanh form,
+Whisper), `gelu_erf` (exact form, MiniLM) and `mha` round where the JAX
+package's `layernorm`, `linear`, `jax.nn.gelu` and `mha` round, so a bf16
+model computes what the JAX package's bf16 model computes.
 """
 from __future__ import annotations
 
@@ -193,3 +194,38 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU with the tanh approximation: jax.nn.gelu's default
     (torch.nn.functional.gelu defaults to the erf form)."""
     return F.gelu(x, approximate="tanh")
+
+
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU, 0.5 x (1 + erf(x / sqrt 2)): jax.nn.gelu(approximate=False),
+    BERT's and MiniLM's activation."""
+    return F.gelu(x)
+
+
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, H * hd] -> a [B, H, S, hd] view."""
+    b, s, d = x.shape
+    return x.view(b, s, n_heads, d // n_heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, hd] -> [B, S, H * hd]."""
+    b, h, s, hd = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int,
+        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain multi-head attention over projected [B, S, D] inputs, as the JAX
+    package's `mha`: scores accumulated in fp32 and divided by sqrt(hd),
+    masked positions (mask broadcastable to [B, H, Sq, Sk], True = keep)
+    filled with -1e30, softmax in fp32, P cast to v's type, P V accumulated
+    in fp32 (a bf16 GEMM's accumulator) and rounded to v's type. Inputs in
+    bf16 are exact in fp32 (and in TF32), so the fp32 products of the scores
+    are the JAX package's."""
+    qh, kh, vh = (split_heads(t, n_heads) for t in (q, k, v))
+    scores = (qh.float() @ kh.float().transpose(-1, -2)) / math.sqrt(qh.shape[-1])
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    return merge_heads(p @ vh)

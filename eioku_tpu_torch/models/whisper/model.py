@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from eioku_tpu_torch.models.layers import LayerNorm, Linear, gelu
+from eioku_tpu_torch.models.layers import LayerNorm, Linear, gelu, merge_heads, split_heads
 from eioku_tpu_torch.ops.flash_attention import flash_attention
 
 # n_mels, d_model, n_heads, n_enc_layers, n_dec_layers, vocab
@@ -188,29 +188,19 @@ def init_whisper(cfg: WhisperConfig, generator: torch.Generator,
 # -- attention ------------------------------------------------------------------------
 
 
-def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
-    b, s, d = x.shape
-    return x.view(b, s, n_heads, d // n_heads).transpose(1, 2)
-
-
-def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    b, h, s, hd = x.shape
-    return x.transpose(1, 2).reshape(b, s, h * hd)
-
-
 def _attend(q, k, v, n_heads: int, mask=None) -> torch.Tensor:
     """Decoder attention: q and k each scaled by hd^-0.25 in the activation
     type, scores and softmax in fp32, P cast to v's type, P V accumulated in
     fp32 and rounded to v's type."""
     scale = (q.shape[-1] // n_heads) ** -0.25
-    qh = _split_heads(q, n_heads) * scale
-    kh = _split_heads(k, n_heads) * scale
-    vh = _split_heads(v, n_heads)
+    qh = split_heads(q, n_heads) * scale
+    kh = split_heads(k, n_heads) * scale
+    vh = split_heads(v, n_heads)
     scores = qh.float() @ kh.float().transpose(-1, -2)
     if mask is not None:
         scores = scores.masked_fill(~mask, _NEG_ATTN)
     w = torch.softmax(scores, dim=-1).to(vh.dtype)
-    return _merge_heads(w @ vh)
+    return merge_heads(w @ vh)
 
 
 def _attend_grouped(q, k, v, n_heads: int) -> torch.Tensor:
@@ -221,14 +211,14 @@ def _attend_grouped(q, k, v, n_heads: int) -> torch.Tensor:
     g = q.shape[0] // b
     hd = q.shape[-1] // n_heads
     scale = hd ** -0.25
-    qh = _split_heads(q, n_heads) * scale  # [BG, H, Sq, hd]
-    kh = _split_heads(k, n_heads) * scale  # [B, H, Sk, hd]
-    vh = _split_heads(v, n_heads)
+    qh = split_heads(q, n_heads) * scale  # [BG, H, Sq, hd]
+    kh = split_heads(k, n_heads) * scale  # [B, H, Sk, hd]
+    vh = split_heads(v, n_heads)
     qh = qh.reshape(b, g, n_heads, q.shape[1], hd)
     scores = torch.einsum("bghqd,bhkd->bghqk", qh.float(), kh.float())
     w = torch.softmax(scores, dim=-1).to(vh.dtype)
     out = torch.einsum("bghqk,bhkd->bghqd", w, vh)
-    return _merge_heads(out.reshape(q.shape[0], n_heads, q.shape[1], hd))
+    return merge_heads(out.reshape(q.shape[0], n_heads, q.shape[1], hd))
 
 
 def _self_attn(x, attn: MultiHeadAttention, n_heads: int, mask=None):
@@ -242,8 +232,8 @@ def _self_attn_flash(x, attn: MultiHeadAttention, n_heads: int):
     head transpose is copied on the card."""
     q, k, v = attn.query(x), attn.key(x), attn.value(x)
     b, s, d = q.shape
-    o = flash_attention(_split_heads(q, n_heads), _split_heads(k, n_heads),
-                        _split_heads(v, n_heads))
+    o = flash_attention(split_heads(q, n_heads), split_heads(k, n_heads),
+                        split_heads(v, n_heads))
     return attn.out(o.transpose(1, 2).reshape(b, s, d))
 
 

@@ -22,3 +22,8 @@ def compute_dtype(device: torch.device) -> torch.dtype:
     type), fp32 on the CPU, where bf16 convolutions are slow and the parity
     tests compare at fp32."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def compute_dtype_name(device: torch.device) -> str:
+    """`compute_dtype` as a model config's `compute_dtype` string."""
+    return {torch.bfloat16: "bfloat16", torch.float32: "float32"}[compute_dtype(device)]

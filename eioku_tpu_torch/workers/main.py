@@ -3,9 +3,10 @@
 Port of eioku_tpu/workers/main.py: queue `ml_jobs`, WORKER_MAX_JOBS default
 1 to serialise the accelerator, job timeout 3600 s, max_tries 1, poll
 0.1 s, schema registration at startup, a reconcile cron every 5 min. The
-engine runs on CUDA; EIOKU_FORCE_CPU=1 builds it on the CPU instead (tests,
-hosts without a card). Without that variable, a host without CUDA makes the
-worker raise at start: it never carries on on the CPU. Multi-host start-up
+engine, the semantic index and the reranker run on CUDA; EIOKU_FORCE_CPU=1
+puts them on the CPU instead (tests, hosts without a card). Without that
+variable, a host without CUDA makes the worker raise at start: it never
+carries on on the CPU. Multi-host start-up
 (the JAX package's initialize_distributed) is not ported.
 
 Until the port has its API, the worker also does the API's start-up work
@@ -53,12 +54,12 @@ def discover_at_start(app_ctx) -> dict | None:
 def build_worker(app_ctx=None, config=None, settings: WorkerSettings | None = None,
                  engine: InferenceEngine | None = None,
                  reconcile_interval_s: float = 300.0) -> Worker:
-    app_ctx = app_ctx or build_context(config or load_config())
     # None is CUDA, which raises on a host without a card
+    device = "cpu" if os.environ.get("EIOKU_FORCE_CPU") == "1" else None
+    app_ctx = app_ctx or build_context(config or load_config(), device=device)
     engine = engine or InferenceEngine(
         model_cache_dir=app_ctx.config.model_cache_dir,
-        model_profile=app_ctx.config.model_profile,
-        device="cpu" if os.environ.get("EIOKU_FORCE_CPU") == "1" else None)
+        model_profile=app_ctx.config.model_profile, device=device)
     queue = app_ctx.producer.queue
     if not isinstance(queue, SqliteJobQueue):
         queue = SqliteJobQueue(app_ctx.db)

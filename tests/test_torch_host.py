@@ -40,6 +40,8 @@ from eioku_tpu_torch.api.app import build_context
 from eioku_tpu_torch.config.settings import AppConfig
 from eioku_tpu_torch.db.connection import Database
 from eioku_tpu_torch.domain.models import Task, TaskStatus, Video
+from eioku_tpu_torch.index.rerank import Reranker
+from eioku_tpu_torch.index.semantic import SemanticIndex
 from eioku_tpu_torch.ml.engine import InferenceEngine
 from eioku_tpu_torch.queue.worker import WorkerSettings
 from eioku_tpu_torch.utils.hashing import hash_file
@@ -69,6 +71,7 @@ COPIED = [
     "services/projection_sync.py", "services/discovery.py", "services/reconciler.py",
     "services/find_service.py", "services/jump_service.py",
     "ml/metadata.py", "workers/__init__.py", "workers/task_handler.py",
+    "models/embed/tokenizer.py", "models/embed/native_tokenizer.py",
 ]
 
 # Host modules the port changes: the top-level names that differ, and why.
@@ -79,11 +82,12 @@ CHANGED = {
     "api/__init__.py": ({"__all__"},
                         "create_app and the controllers are not ported yet"),
     "api/app.py": ({"build_context", "create_app"},
-                   "context only: no create_app; no semantic or visual index "
-                   "is built until those slices land"),
+                   "context only: no create_app; the semantic index and the "
+                   "reranker take a device; no visual index until that slice"),
     "workers/main.py": ({"build_worker", "main"},
-                        "EIOKU_FORCE_CPU picks the engine's device; no "
-                        "initialize_distributed; start-up discovery"),
+                        "EIOKU_FORCE_CPU picks the engine's and the semantic "
+                        "index's device; no initialize_distributed; start-up "
+                        "discovery"),
 }
 
 
@@ -144,7 +148,8 @@ def test_every_host_module_is_listed():
     found = {str(p.relative_to(REPO / "eioku_tpu_torch"))
              for d in host_dirs for p in (REPO / "eioku_tpu_torch" / d).rglob("*.py")}
     found |= {"utils/hashing.py", "utils/logging.py", "utils/metrics.py",
-              "ml/metadata.py"}
+              "ml/metadata.py", "models/embed/tokenizer.py",
+              "models/embed/native_tokenizer.py"}
     assert found == set(COPIED) | set(CHANGED)
 
 
@@ -555,13 +560,41 @@ def test_semantic_indexing_fails_not_configured(tmp_path):
 
 
 def test_build_context_warns_and_builds_no_index(tmp_path, caplog):
+    # the semantic index and the reranker are built (their device is
+    # resolved only when a model is needed); the visual index alone is not
     cfg = AppConfig(scan_paths=[], semantic_search=True, visual_search=True)
     with caplog.at_level("WARNING", logger="eioku_tpu_torch.api.app"):
         ctx = build_context(cfg, db=Database(f"sqlite:///{tmp_path}/w.db"))
-    assert "semantic_index" not in ctx.extra and "visual_index" not in ctx.extra
+    assert isinstance(ctx.extra["semantic_index"], SemanticIndex)
+    assert isinstance(ctx.extra["reranker"], Reranker)
+    assert "visual_index" not in ctx.extra
     (record,) = [r for r in caplog.records if r.name == "eioku_tpu_torch.api.app"]
-    assert "semantic index" in record.getMessage()
     assert "visual index" in record.getMessage()
+    assert "semantic" not in record.getMessage()
+
+
+def test_semantic_indexing_completes_and_search_finds_the_video(tmp_path):
+    # a finished transcription enqueues semantic_indexing; the port's worker
+    # now runs it on its index, and the transcript becomes searchable
+    cfg = AppConfig(scan_paths=[], semantic_search=True, visual_search=False,
+                    model_cache_dir=str(tmp_path))
+    ctx = build_context(cfg, db=Database(f"sqlite:///{tmp_path}/s.db"), device="cpu")
+    index = ctx.extra["semantic_index"]
+    path = tmp_path / "clip.mp4"
+    path.write_bytes(b"x")
+    ctx.videos.save(Video(id="v", path=str(path), file_hash=hash_file(str(path))))
+    ctx.tasks.save(Task(id="t", video_id="v", task_type="transcription", config={}))
+    asyncio.run(process_ml_task({"app_ctx": ctx, "engine": ScriptedEngine("p")}, "t",
+                                "transcription", "v", str(path), {}))
+    _drain(PORT, ctx, engine=InferenceEngine(device="cpu"))
+    tasks = {t.task_type: t for t in ctx.tasks.find(limit=10)}
+    assert tasks["semantic_indexing"].status is TaskStatus.COMPLETED, \
+        tasks["semantic_indexing"].error
+    rows = _rows(ctx.db, "SELECT text, start_ms, end_ms FROM embedding_chunks")
+    assert rows == [(" ".join(r["payload"]["text"] for r in _TRANSCRIPT), 0, 6000)]
+    (hit,) = index.search("the lighthouse keeper waves", top_k=3)
+    assert hit["video_id"] == "v" and hit["jump_to"] == {"start_ms": 0, "end_ms": 6000}
+    assert ctx.db.scalar("SELECT COUNT(*) FROM topics WHERE asset_id = 'v'") > 0
 
 
 # ---------------------------------------------------------------------------

@@ -256,3 +256,52 @@ def test_flash_attention_kernel_refuses_other_inputs(cuda_device):
     q, k, v = _qkv((1, 2, 64, 64), torch.float16, cuda_device, seed=0)
     with pytest.raises(TypeError, match="bf16 or fp32"):
         flash_attention(q, k, v)
+
+
+# MiniLM's K3 route: S = 512 with per-row lengths, [B, H, S, 32] views of
+# the [B, S, d] projections; one K3 launch per layer
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minilm_at_512_launches_k3_and_matches_the_cpu(cuda_device, monkeypatch, dtype):
+    from dataclasses import replace
+
+    from eioku_tpu_torch.models.embed.minilm import MiniLMConfig, init_minilm, minilm_embed
+    from eioku_tpu_torch.ops import _cuda
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = MiniLMConfig()
+    cpu = init_minilm(cfg, torch.Generator().manual_seed(0))
+    card = init_minilm(cfg, torch.Generator().manual_seed(0), cuda_device)
+    card.cfg = replace(cfg, compute_dtype="bfloat16" if dtype == torch.bfloat16
+                       else "float32")
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (4, 512), generator=g)
+    mask = torch.zeros((4, 512), dtype=torch.int32)
+    for row, length in enumerate((512, 130, 1, 300)):
+        mask[row, :length] = 1
+    want = minilm_embed(cpu, ids, mask)
+    _cuda.reset_launch_counts()
+    got = minilm_embed(card, ids.to(cuda_device), mask.to(cuda_device)).cpu()
+    assert _cuda.launch_counts()["flash_attention"] == cfg.n_layers
+    if dtype == torch.float32:
+        # fp32 card (TF32 off) against the CPU: 1e-4 per entry
+        assert float((got - want).abs().max()) <= 1e-4
+    else:
+        # bf16 activations against fp32: cosine of unit vectors >= 0.995
+        assert float((got * want).sum(-1).min()) >= 0.995
+
+
+def test_topk_cosine_tie_order_on_the_card(cuda_device):
+    from eioku_tpu_torch.index.semantic import _topk_cosine
+
+    g = torch.Generator().manual_seed(2)
+    v = torch.randn((20000, 384), generator=g)
+    v[5000:5040] = v[11]  # exact ties: the lower index must come first
+    v[19999] = v[11]
+    v = (v / v.norm(dim=1, keepdim=True)).half()
+    q = v[11].float() + 0.01 * torch.randn(384, generator=g)
+    for k in (1, 10, 64):
+        want_s, want_i = _topk_cosine(v, q, k)
+        got_s, got_i = _topk_cosine(v.to(cuda_device), q.to(cuda_device), k)
+        assert torch.equal(got_i.cpu(), want_i)
+        assert float((got_s.cpu() - want_s).abs().max()) <= 1e-5
+    assert got_i[:3].tolist() == [11, 5000, 5001]
