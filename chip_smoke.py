@@ -72,27 +72,32 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    log-prob margin there must be below 1e-3); once more with the
    temperature ladder on;
 4e. the host stack: a fresh SQLite database and the port's AppConfig
-   (combined_visual, the four visual sub-tasks at VISUAL_CONFIG plus
-   metadata_extraction; ocr inactive, since discovery would fold it into
-   visual_analysis, which the port refuses) over a folder holding the 60 s
-   clip; workers.main's discover_at_start and build_worker with the engine
-   on the card and max_jobs 1, then Worker.drain. Launch counts are zeroed
-   just before the drain and read just after: K1 once, K2 twice. Both tasks
-   must end COMPLETED; the database's artifacts of each sub type, in order,
-   must equal the rows built from what the engine returned inside the
-   worker; scene rows equal the CPU path's (phase 4); scene_ranges,
-   object_labels and face_clusters agree with the artifacts; the video's
-   duration is set from its metadata; jump finds the 20 s cut from 15 s.
-   Then one ad-hoc transcription job on the wav (the tiny pretrained path of
-   4d) through the producer: K3 launches, its rows equal the engine's, find
-   returns a hit for a word of them through FTS5. semantic_search is on, so
-   build_context builds the semantic index (MiniLM-L6 from a written
-   checkpoint, bf16 on the card) and the transcription's semantic_indexing
-   follow-up must end COMPLETED, with one embedding_chunks row per chunk of
-   the engine's transcript rows (the task's default chunking), and a
-   search on the last chunk's text must return the video first at that
-   chunk's span. Each task's worker and engine walls are printed; their
-   difference is the host stack's own cost (database writes and projection
+   (combined_visual, the four visual sub-tasks at VISUAL_CONFIG, ocr and
+   metadata_extraction active, visual_search and semantic_search on) over a
+   folder holding the 60 s clip: discovery folds ocr into visual_analysis.
+   workers.main's discover_at_start and build_worker with the engine on the
+   card and max_jobs 1, then Worker.drain. Launch counts are zeroed just
+   before the drain and read just after: K1 once, K2 twice. Both tasks and
+   the visual task's two follow-ups (semantic_indexing, visual_indexing)
+   must end COMPLETED; the database's artifacts of each sub type, OCR's
+   included, in order, must equal the rows built from what the engine
+   returned inside the worker; scene rows equal the CPU path's (phase 4);
+   scene_ranges, object_labels and face_clusters agree with the artifacts;
+   the video's duration is set from its metadata; jump finds the 20 s cut
+   from 15 s. Every OCR row is in ocr_fts and find returns a hit for a word
+   of them; semantic_indexing indexed OCR chunks; visual_indexing embedded
+   one keyframe per scene midpoint on the card, each read from the pass's
+   keyframe cache (0 calls of _decode_at), and a visual search returns all
+   of them. Then one ad-hoc transcription job on the wav (the tiny
+   pretrained path of 4d) through the producer: K3 launches, its rows equal
+   the engine's, find returns a hit for a word of them through FTS5. The
+   semantic index (MiniLM-L6 from a written checkpoint, bf16 on the card)
+   runs the transcription's semantic_indexing follow-up, which must end
+   COMPLETED, with one embedding_chunks row per chunk of the engine's
+   transcript rows (the task's default chunking), and a search on the last
+   chunk's text must return the video first at that chunk's span. Each
+   task's worker and engine walls are printed; their difference is the
+   host stack's own cost (database writes and projection
    sync). The same job runs once more under EIOKU_PROFILE_DIR: its
    torch.profiler trace must hold the engine thread's aten ops and K3's
    kernels;
@@ -119,11 +124,35 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    bf16 card logits hold within 5e-2 of the CPU's fp32 (fp32 card within
    1e-4 x max |logit|), ms per rerank; 5.6 the phase's peak device
    memory;
-6. JSON lines: each slice's results, phase 5's, each phase's seconds, and
-   {"kernels": [...]} with each kernel's launches in the measured run,
-   max error, kernel / plain / bound / library times (K3's entry also
-   with its launches per MiniLM call at S = 512 and on the indexing path);
-7. the card's name and power limit (nvidia-smi), then, as the last line,
+6. OCR at full width (CRAFT and CRNN, random weights from seed 0, fp32):
+   CRAFT on one 384x640 frame of the clip and CRNN at every bucket width
+   (32 ... 512, half the crops padded with -1.0) card (TF32 off) vs CPU
+   within MODEL_TOL of the largest |value|; the standalone ocr task on the
+   clip (2 s grid: 30 frames) after a warm-up: wall, rows, host box
+   extraction seconds (extract_quads timed apart) and quads, recognition
+   seconds (recognize_crops timed apart), peak MiB;
+   visual_analysis with all five sub-tasks at their defaults after a
+   warm-up: wall, video-s/s, peak, rows, with launch counts zeroed just
+   before and read just after: K1 once, K2 twice (OCR launches neither);
+   then visual_analysis decoding at full size with scenes at 2 fps, so
+   that its OCR consumer sees the task's frames (the same 2 s grid, the
+   same INTER_AREA resize of the source frame; both decoded by cv2): its
+   OCR rows must equal the standalone task's;
+7. CLIP ViT-B/32 at full width (random weights from seed 0): both towers
+   card (TF32 off) vs CPU within MODEL_TOL; VisualIndex.embed_frames over
+   CLIP_FRAMES 720p frames at batch 16 (host preprocessing included) in
+   frames/s, unit norms, and its halves: the host preprocessing alone and
+   the image tower alone; the query embedding's p50 over N_QUERIES calls;
+   VisualIndex.index_video on the clip (no scenes: 10 s stride keyframes,
+   seek-decoded), search (every keyframe, highest score first) and similar
+   (anchor excluded);
+8. JSON lines: each slice's results, phase 5's, 6's and 7's, each phase's
+   seconds, and {"kernels": [...]} with each kernel's launches in the
+   measured run, max error, kernel / plain / bound / library times (K1's
+   and K2's entries also with their launches in the pass with OCR and
+   through the worker; K3's with its launches per MiniLM call at S = 512
+   and on the indexing path);
+9. the card's name and power limit (nvidia-smi), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits nonzero and
@@ -204,6 +233,7 @@ EMBED_BATCH, EMBED_SEQ, EMBED_BATCHES = 256, 256, 10  # bench.py:207-241
 RETRIEVAL_SIZES = (10_000, 262_144)  # bench.py:1046's N, and 192 MiB of f16
 N_QUERIES = 30
 GAP_TOL = 1e-3  # card vs CPU top-10 compared where the 10th score leads the 11th by more
+CLIP_FRAMES = 128  # embed_frames' measured batch of frames
 
 
 def log(msg: str) -> None:
@@ -1171,11 +1201,13 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
     config = AppConfig(
         scan_paths=[videos], database_url=f"sqlite:///{root}/eioku.db",
         model_cache_dir=cache, combined_visual=True, semantic_search=True,
-        visual_search=False,
         active_task_types=["scene_detection", "object_detection", "face_detection",
-                           "place_classification", "metadata_extraction"],
+                           "place_classification", "ocr", "metadata_extraction"],
         task_settings={k: v for k, v in VISUAL_CONFIG.items() if v})
+    if not config.visual_search:
+        raise AssertionError("visual_search is off by default")
     ctx = build_context(config)
+    seeks = _count_calls(ctx.extra["visual_index"], "_decode_at")
     report = discover_at_start(ctx)
     log(f"worker: discovery {report}")
     engine = InferenceEngine(model_cache_dir=cache, model_profile=config.model_profile,
@@ -1215,10 +1247,12 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
 
     launches = drain("visual")
     tasks = {t.task_type: t for t in ctx.tasks.find(limit=20)}
-    if sorted(tasks) != ["metadata_extraction", "visual_analysis"] or any(
+    if sorted(tasks) != ["metadata_extraction", "semantic_indexing", "visual_analysis",
+                         "visual_indexing"] or any(
             t.status is not TaskStatus.COMPLETED for t in tasks.values()):
         raise AssertionError("worker: tasks not all completed: " + str(
             [(t.task_type, t.status.value, t.error) for t in tasks.values()]))
+    followups = {t: worker_s[t] for t in ("semantic_indexing", "visual_indexing")}
     if launches["scene_diff"] != 1 or launches["nms"] != 2:
         raise AssertionError(f"worker: expected K1 x1 and K2 x2 (objects + faces), "
                              f"got {launches}")
@@ -1249,6 +1283,7 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
         raise AssertionError(f"worker: next scene after 15 s is {hit}")
     log(f"worker: projections {counts}, {len(clusters)} face clusters; next scene "
         f"after 15 s starts at {hit['start_ms']} ms")
+    ocr = _check_ocr_and_visual_followups(ctx, video.id, visual, len(seeks))
 
     # an ad-hoc transcription job on the wav, through the producer
     wav_video = Video(path=wav, file_hash=hash_file(wav), size_bytes=os.path.getsize(wav))
@@ -1315,9 +1350,54 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
     for t, r in per_task.items():
         log(f"worker {t}: worker {r['worker_s']:.3f} s, engine {r['engine_s']:.3f} s, "
             f"host stack {r['host_stack_s'] * 1e3:.1f} ms ({card})")
-    return {"tasks": per_task, "launches": launches,
+    for t, wall in followups.items():
+        log(f"worker {t} (visual_analysis' follow-up): {wall:.3f} s ({card})")
+    return {"tasks": per_task, "followups_s": followups, "launches": launches,
             "transcription_launches": tr_launches, "find_word": word,
-            "semantic_indexing": semantic, "card": card}
+            "semantic_indexing": semantic, "ocr_and_visual_index": ocr, "card": card}
+
+
+def _check_ocr_and_visual_followups(ctx, video_id: str, visual: dict, seeks: int) -> dict:
+    """The visual task's OCR rows are in ocr_fts and found by find; its
+    semantic_indexing follow-up indexed them; its visual_indexing follow-up
+    embedded one keyframe per scene midpoint on the card, every one read
+    from the pass's keyframe cache (no seek-decode)."""
+    import re
+
+    ocr = visual["ocr"]
+    fts = ctx.db.scalar("SELECT COUNT(*) FROM ocr_fts_meta WHERE asset_id = ?", (video_id,))
+    if not ocr or fts != len(ocr):
+        raise AssertionError(f"worker: {len(ocr)} OCR rows, {fts} ocr_fts rows")
+    # FTS5's unicode61 tokens: runs of letters and digits
+    words = sorted({w for r in ocr for w in re.findall(r"[^\W_]+", r["payload"]["text"])},
+                   key=lambda w: (-len(w), w))
+    if not words:
+        raise AssertionError(f"worker: no word in {len(ocr)} OCR rows")
+    found = ctx.find.find(video_id, words[0])
+    if not found:
+        raise AssertionError(f"worker: find {words[0]!r} in the OCR text: no hit")
+    chunks = ctx.db.scalar("SELECT COUNT(*) FROM embedding_chunks WHERE asset_id = ? "
+                           "AND source = 'ocr'", (video_id,))
+    if not chunks:
+        raise AssertionError("worker: semantic_indexing indexed no OCR chunk")
+    scenes = visual["scene_detection"]
+    rows = [tuple(r) for r in ctx.db.query(
+        "SELECT ts_ms, scene_index FROM frame_embeddings WHERE asset_id = ? ORDER BY slot",
+        (video_id,))]
+    want = [((s["span_start_ms"] + s["span_end_ms"]) // 2, s["payload"]["scene_index"])
+            for s in scenes]
+    index = ctx.extra["visual_index"]
+    if rows != want or seeks or index._dev.type != "cuda":
+        raise AssertionError(f"worker: visual_indexing rows {rows} (want {want}), "
+                             f"{seeks} seek-decodes, device {index._dev}")
+    hits = index.search("a red frame", top_k=len(rows))
+    if sorted(h["ts_ms"] for h in hits) != [r[0] for r in rows]:
+        raise AssertionError(f"worker: visual search gave {hits}")
+    log(f"worker: {len(ocr)} OCR rows in ocr_fts, find {words[0]!r} -> {len(found)} hits; "
+        f"{chunks} OCR chunks indexed; {len(rows)} keyframes embedded from the cache "
+        f"({seeks} seek-decodes), visual search returns all of them")
+    return {"ocr_rows": len(ocr), "find_word": words[0], "ocr_chunks": chunks,
+            "keyframes": len(rows), "seek_decodes": seeks}
 
 
 def _check_semantic_followup(ctx, video_id: str, transcript: list) -> dict:
@@ -1735,6 +1815,267 @@ def phase_semantic(dev, workdir: str, card: str) -> dict:
             "peak_mib": peak, "card": card}
 
 
+def _peak_run(fn, *args):
+    """(fn(*args), wall s, peak device MiB), the device synchronised around
+    it and its peak reset before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _ocr_models_card_vs_cpu(clip: str) -> dict:
+    """CRAFT on one 384x640 frame of the clip and CRNN at every bucket width,
+    full width, fp32 on the card (TF32 off) against the CPU: each within
+    MODEL_TOL of its largest |value|."""
+    import copy
+
+    import torch
+
+    from eioku_tpu_torch.ml import ocr_task, video_io
+    from eioku_tpu_torch.models.ocr.craft import CRAFT
+    from eioku_tpu_torch.models.ocr.crnn import CRNN
+
+    batch = next(iter(video_io.iter_frame_batches(
+        clip, batch_size=1, frame_interval_s=7.0,
+        resize_hw=(ocr_task.DETECT_H, ocr_task.DETECT_W), fast_level=0)))
+    rgb = torch.from_numpy(batch.frames[:1]).float() / 255.0
+    x = ((rgb - torch.from_numpy(ocr_task._MEAN)) / torch.from_numpy(ocr_task._STD)) \
+        .permute(0, 3, 1, 2).contiguous()
+    gen = torch.Generator().manual_seed(3)
+    cases = [("craft 384x640", CRAFT(generator=torch.Generator().manual_seed(0)).eval(), x)]
+    crnn = CRNN(generator=torch.Generator().manual_seed(0)).eval()
+    for w in ocr_task.CROP_WIDTHS:
+        crops = torch.rand((8, 1, 32, w), generator=gen) * 2 - 1
+        crops[1::2, :, :, w // 2:] = -1.0  # the -1.0 padding of shorter crops
+        cases.append((f"crnn W={w}", crnn, crops))
+    errs = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card_models = {}
+        for name, model, inp in cases:
+            card = card_models.setdefault(id(model), copy.deepcopy(model).cuda())
+            with torch.no_grad():
+                ref = model(inp)
+                got = card(inp.cuda()).cpu()
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            log(f"{name} fp32 card vs CPU: max abs err {err:.3e} (max |value| {scale:.3e})")
+            if not err <= MODEL_TOL * max(scale, 1.0):
+                raise AssertionError(f"{name}: card and CPU differ by {err} (scale {scale})")
+            errs[name] = err
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    return errs
+
+
+def phase_ocr(dev, workdir: str, card: str) -> dict:
+    """OCR at full width with random weights (seed 0): the models card vs
+    CPU; the standalone ocr task on the clip (box extraction timed apart);
+    visual_analysis with all five sub-tasks at their defaults (K1 once, K2
+    twice); and a run whose OCR frames are the standalone task's frames,
+    whose OCR rows must equal the standalone task's."""
+    import torch
+
+    from eioku_tpu_torch.ml import ocr_task
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.ops import _cuda
+
+    clip = os.path.join(workdir, "clip.mp4")
+    models = _ocr_models_card_vs_cpu(clip)
+    engine = InferenceEngine(model_cache_dir=os.path.join(workdir, "models"), device=dev)
+    stages = {"extract_quads": {"s": 0.0, "calls": 0, "out": 0},
+              "recognize_crops": {"s": 0.0, "calls": 0, "out": 0}}
+    originals = {name: getattr(ocr_task, name) for name in stages}
+
+    def timed(name):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = originals[name](*a, **kw)
+            stages[name]["s"] += time.perf_counter() - t
+            stages[name]["calls"] += 1
+            stages[name]["out"] += len(out)
+            return out
+        return run
+
+    engine.run_task("ocr", clip, {"frame_interval_s": 30.0})  # warm-up: models, cuDNN
+    for name in stages:
+        setattr(ocr_task, name, timed(name))
+    try:
+        rows, wall, peak = _peak_run(engine.run_task, "ocr", clip, {})
+    finally:
+        for name, fn in originals.items():
+            setattr(ocr_task, name, fn)
+    extraction = {"s": stages["extract_quads"]["s"], "calls": stages["extract_quads"]["calls"],
+                  "quads": stages["extract_quads"]["out"]}
+    recognition = stages["recognize_crops"]
+    frames = _grid_frames(2.0, sample_fps=1 / 2.0)
+    if extraction["calls"] != frames or not rows:
+        raise AssertionError(f"ocr task: {extraction['calls']} frames searched for text "
+                             f"(expected {frames}), {len(rows)} rows")
+    if not all(math.isfinite(r["payload"]["confidence"]) and r["payload"]["text"]
+               for r in rows):
+        raise AssertionError("ocr task: a row without text or with a non-finite confidence")
+    log(f"ocr task: {wall:.3f} s wall, {CLIP_SECONDS / wall:.2f} video-s/s, peak "
+        f"{peak:.1f} MiB, {len(rows)} rows from {extraction['quads']} quads in "
+        f"{frames} frames; host box extraction {extraction['s']:.3f} s; recognition "
+        f"(host crop batches, CRNN, CTC decode) {recognition['s']:.3f} s in "
+        f"{recognition['calls']} calls ({card})")
+    standalone = {"wall_s": wall, "video_s_per_s": CLIP_SECONDS / wall, "peak_mib": peak,
+                  "rows": len(rows), "frames": frames, "quads": extraction["quads"],
+                  "box_extraction_s": extraction["s"], "recognition_s": recognition["s"],
+                  "recognition_calls": recognition["calls"]}
+
+    config = {**VISUAL_CONFIG, "ocr": {}}
+    engine.run_task("visual_analysis", clip, config)  # warm-up
+    _cuda.reset_launch_counts()
+    out, wall, peak = _peak_run(engine.run_task, "visual_analysis", clip, config)
+    launches = _cuda.launch_counts()
+    log(f"visual_analysis with OCR: {wall:.3f} s wall, {CLIP_SECONDS / wall:.2f} "
+        f"video-s/s, peak {peak:.1f} MiB, rows { {k: len(v) for k, v in out.items()} }; "
+        f"launches {launches} ({card})")
+    if set(out) != set(config) or not out["ocr"]:
+        raise AssertionError(f"visual_analysis with OCR returned {sorted(out)}, "
+                             f"{len(out.get('ocr', []))} OCR rows")
+    if launches["scene_diff"] != 1 or launches["nms"] != 2:
+        raise AssertionError(f"visual_analysis with OCR: expected K1 x1 and K2 x2, "
+                             f"got {launches}")
+    fold = {"wall_s": wall, "video_s_per_s": CLIP_SECONDS / wall, "peak_mib": peak,
+            "rows": {k: len(v) for k, v in out.items()}, "launches": launches}
+
+    # the same frames as the standalone task: decode at full size (the OCR
+    # consumer then resizes the source frame to 384x640 with INTER_AREA, as
+    # the task's cv2 decode does; the native decoder, where it builds, has
+    # its own filter, so both decode with cv2 here) and a scene cadence of
+    # 2 fps, whose grid holds the task's 2 s grid (step 60 at 30 fps)
+    same = {**config, "detector_size": max(CLIP_W, CLIP_H),
+            "scene_detection": {"sample_fps": 2.0}}
+    native = os.environ.get("EIOKU_NATIVE_DECODE")
+    os.environ["EIOKU_NATIVE_DECODE"] = "0"
+    try:
+        rows = engine.run_task("ocr", clip, {})
+        fold_rows = engine.run_task("visual_analysis", clip, same)["ocr"]
+    finally:
+        if native is None:
+            del os.environ["EIOKU_NATIVE_DECODE"]
+        else:
+            os.environ["EIOKU_NATIVE_DECODE"] = native
+    if fold_rows != rows or not rows:
+        differ = sum(a != b for a, b in zip(fold_rows, rows)) + abs(len(fold_rows) - len(rows))
+        raise AssertionError(f"the fold's OCR rows on the task's frames differ from the "
+                             f"task's in {differ} rows ({len(fold_rows)} vs {len(rows)})")
+    log(f"visual_analysis on the ocr task's frames: OCR rows equal the task's "
+        f"({len(rows)} rows)")
+    return {"models_max_abs_err": models, "task": standalone, "visual_analysis": fold,
+            "fold_rows_equal_task_rows": len(rows), "card": card}
+
+
+def _clip_towers_card_vs_cpu(dev) -> dict:
+    """Both ViT-B/32 towers at full width, random weights (seed 0), fp32 on
+    the card (TF32 off) against the CPU: within MODEL_TOL."""
+    import copy
+
+    import torch
+
+    from eioku_tpu_torch.models.clip.model import (
+        ClipConfig,
+        clip_encode_image,
+        clip_encode_text,
+        init_clip,
+    )
+    from eioku_tpu_torch.models.clip.tokenizer import FallbackClipTokenizer
+
+    cfg = ClipConfig()
+    cpu = init_clip(cfg, torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    imgs = torch.randn((4, cfg.image_size, cfg.image_size, 3),
+                       generator=torch.Generator().manual_seed(4))
+    ids = torch.from_numpy(np.asarray(FallbackClipTokenizer(cfg.vocab_size).encode_batch(
+        ["a red car at night", "a dog on the beach", "", "whiteboard"])))
+    errs = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, fn, x in (("image", clip_encode_image, imgs), ("text", clip_encode_text, ids)):
+            ref = fn(cpu, x)
+            got = fn(card, x.to(dev)).cpu()
+            errs[name] = float((got - ref).abs().max())
+            log(f"clip {name} tower fp32 card vs CPU: max abs err {errs[name]:.3e}")
+            if not errs[name] <= MODEL_TOL:
+                raise AssertionError(f"clip {name} tower: card and CPU differ by {errs[name]}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    return errs
+
+
+def phase_clip(dev, workdir: str, card: str) -> dict:
+    """CLIP ViT-B/32 and the visual index on the card: towers card vs CPU;
+    embed_frames over CLIP_FRAMES frames at batch 16; the query embedding;
+    VisualIndex.index_video (stride keyframes, seek-decoded), search and
+    similar on the clip."""
+    import torch
+
+    from eioku_tpu_torch.api.app import build_context
+    from eioku_tpu_torch.config.settings import AppConfig
+    from eioku_tpu_torch.domain.models import Video
+    from eioku_tpu_torch.models.clip.model import clip_encode_image, preprocess_images
+
+    towers = _clip_towers_card_vs_cpu(dev)
+    root = os.path.join(workdir, "clip_index")
+    os.makedirs(root)
+    clip = os.path.join(workdir, "clip.mp4")
+    ctx = build_context(AppConfig(scan_paths=[], database_url=f"sqlite:///{root}/v.db",
+                                  semantic_search=False, visual_search=True,
+                                  model_cache_dir=root), device=dev)
+    index = ctx.extra["visual_index"]
+    rng = np.random.default_rng(5)
+    frames = [rng.integers(0, 255, (CLIP_H, CLIP_W, 3), np.uint8)
+              for _ in range(CLIP_FRAMES)]
+    index.embed_frames(frames[:16])  # warm-up: the model on the card
+    vecs, embed_s, peak = _peak_run(index.embed_frames, frames)
+    # its two halves: the host's resize and crop, then the image tower alone
+    pre, preprocess_s, _ = _peak_run(preprocess_images, frames, index._cfg)
+    batches = [torch.from_numpy(pre[i:i + 16]).to(dev) for i in range(0, CLIP_FRAMES, 16)]
+    _, tower_s, _ = _peak_run(lambda: [clip_encode_image(index._model, b) for b in batches])
+    norms = np.linalg.norm(vecs, axis=1)
+    if vecs.shape != (CLIP_FRAMES, 512) or np.abs(norms - 1).max() > 1e-4:
+        raise AssertionError(f"embed_frames: shape {vecs.shape}, norms off 1 by "
+                             f"{np.abs(norms - 1).max()}")
+    times = []
+    for i in range(N_QUERIES):
+        _, t, _ = _peak_run(index.embed_texts, [f"{SEM_WORDS[i]} at night"])
+        times.append(t)
+    query_ms = _p50_ms(times)
+    video = Video(path=clip, file_hash="clip", duration_ms=CLIP_SECONDS * 1000)
+    ctx.videos.save(video)
+    n, index_s, _ = _peak_run(index.index_video, video.id, {})
+    hits, search_s, _ = _peak_run(index.search, "a red frame", 10)
+    similar = index.similar(video.id, 15000, top_k=10)
+    want_stamps = list(range(5000, CLIP_SECONDS * 1000, 10000))  # 10 s stride
+    scores = [h["score"] for h in hits]
+    if n != len(want_stamps) or sorted(h["ts_ms"] for h in hits) != want_stamps \
+            or scores != sorted(scores, reverse=True) \
+            or not all(math.isfinite(x) for x in scores):
+        raise AssertionError(f"visual index: {n} keyframes, search hits {hits}")
+    if len(similar) != n - 1 or 15000 in {h["ts_ms"] for h in similar}:
+        raise AssertionError(f"similar: {similar}")
+    log(f"clip: embed_frames {CLIP_FRAMES} frames at batch 16 in {embed_s:.3f} s "
+        f"({CLIP_FRAMES / embed_s:.1f} frames/s, host preprocessing included; the "
+        f"preprocessing alone {preprocess_s:.3f} s, the image tower alone "
+        f"{tower_s:.3f} s = {CLIP_FRAMES / tower_s:.1f} frames/s), peak "
+        f"{peak:.1f} MiB; query embedding p50 {query_ms:.3f} ms; index_video {n} "
+        f"keyframes in {index_s:.3f} s; search {search_s * 1e3:.3f} ms ({card})")
+    return {"towers_max_abs_err": towers, "embed_frames_per_s": CLIP_FRAMES / embed_s,
+            "embed_s": embed_s, "preprocess_s": preprocess_s, "tower_s": tower_s,
+            "tower_frames_per_s": CLIP_FRAMES / tower_s, "peak_mib": peak, "query_ms_p50": query_ms,
+            "index_video_s": index_s, "keyframes": n, "search_ms": search_s * 1e3,
+            "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -1775,16 +2116,20 @@ def main() -> int:
         wk = timed("4e worker", phase_worker, dev, workdir,
                    os.path.join(workdir, "clip.mp4"), wav, sl["cpu_scenes"], card)
         sem = timed("5 semantic", phase_semantic, dev, workdir, card)
+        ocr = timed("6 OCR", phase_ocr, dev, workdir, card)
+        clip = timed("7 CLIP", phase_clip, dev, workdir, card)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
          "replaces": "eioku_tpu/ops/scene_diff.py:32",
          "launches": sl["launches"]["scene_diff"],
+         "launches_with_ocr": ocr["visual_analysis"]["launches"]["scene_diff"],
          "launches_through_worker": wk["launches"]["scene_diff"], **k1},
         {"name": "nms_keep", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/nms.cu",
          "replaces": "eioku_tpu/ops/nms.py:30",
          "launches": sl["launches"]["nms"],
+         "launches_with_ocr": ocr["visual_analysis"]["launches"]["nms"],
          "launches_through_worker": wk["launches"]["nms"], **k2,
          "on_face_candidates": sl["k2_faces"], "on_object_candidates": sl["k2_objects"]},
         {"name": "flash_attention", "route": "cuda",
@@ -1803,6 +2148,7 @@ def main() -> int:
                       "production_decode": dec, "card_vs_cpu": vs_cpu}))
     print(json.dumps({"worker": wk}))
     print(json.dumps({"semantic": sem}))
+    print(json.dumps({"ocr": ocr, "clip": clip}))
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,16 +5,12 @@ checks and salvages a SQLite file, runs the migrations and wires the
 repositories, the projection sync, discovery, find, jump and the reconciler,
 as the JAX package's does. When config.semantic_search is on it puts the
 semantic index (MiniLM, index/semantic.py) and the cross-encoder reranker
-(index/rerank.py) into ctx.extra, on `device` (None is CUDA, resolved when a
-model is first needed, so a context on a host without a card works for
-everything else and its indexing tasks raise). Two parts wait for later
-slices:
-
-- create_app and the HTTP controllers (the API is not ported yet), so this
-  module imports neither web/ nor api/controllers;
-- the visual (CLIP) index. When config.visual_search asks for it, a warning
-  names it and none is built, so a visual_indexing task fails with the task
-  handler's "not configured" error.
+(index/rerank.py) into ctx.extra, and when config.visual_search is on the
+visual index (CLIP, index/visual.py), all on `device` (None is CUDA,
+resolved when a model or the corpus is first needed, so a context on a host
+without a card works for everything else and its indexing tasks raise).
+create_app and the HTTP controllers wait for a later slice (the API is not
+ported yet), so this module imports neither web/ nor api/controllers.
 """
 from __future__ import annotations
 
@@ -113,6 +109,6 @@ def build_context(config: AppConfig | None = None,
         ctx.extra["semantic_index"] = SemanticIndex(ctx, device=device)
         ctx.extra["reranker"] = Reranker(config.model_cache_dir, device=device)
     if getattr(config, "visual_search", False):
-        log.warning("not built, not ported yet: visual index (CLIP); its "
-                    "indexing tasks fail as not configured")
+        from eioku_tpu_torch.index.visual import VisualIndex
+        ctx.extra["visual_index"] = VisualIndex(ctx, device=device)
     return ctx

@@ -1,5 +1,6 @@
 """Combined visual analysis: one decode pass feeds scene scoring, object and
-face detection and place classification (port of eioku_tpu/ml/combined.py).
+face detection, place classification and OCR (port of
+eioku_tpu/ml/combined.py).
 
 The video is decoded once at the finest sampling rate and frames are routed
 to each consumer:
@@ -13,11 +14,12 @@ to each consumer:
     multiple of the object grid, the face detector reads a device-side
     gather of that upload (the face rider);
   - otherwise faces have their own consumer and places their own batches
-    (host resize to 224).
+    (host resize to 224);
+  - OCR takes the frames on its interval: one CRAFT pass per batch (host
+    resize to 384x640, I420 upload) shared by every configured language,
+    then box extraction on the host and one CRNN pass per recognizer group.
 
-Results are returned per task type. OCR, the last consumer of the JAX
-package's pass, is not ported yet: a config that carries it raises
-ModelNotAvailable.
+Results are returned per task type.
 """
 from __future__ import annotations
 
@@ -42,10 +44,19 @@ from eioku_tpu_torch.ml.detection import (
     letterbox_batch,
     object_payload,
 )
-from eioku_tpu_torch.ml.engine import ModelNotAvailable
+from eioku_tpu_torch.ml.ocr_task import (
+    DETECT_H,
+    DETECT_W,
+    craft_scores_i420,
+    detect_text_crops,
+    ocr_rows,
+    recognize_crops,
+)
+from eioku_tpu_torch.ml.ocr_task import _models as ocr_models
 from eioku_tpu_torch.ml.places import _model as load_places
 from eioku_tpu_torch.ml.places import classify, place_records
 from eioku_tpu_torch.ml.scenes import SCENE_H, SCENE_W, assemble_scenes, scene_rows
+from eioku_tpu_torch.models.ocr.weights import recognizer_for_language
 from eioku_tpu_torch.models.resnet.model import INPUT_SIZE as PLACE_SIZE
 from eioku_tpu_torch.models.resnet.model import normalize
 from eioku_tpu_torch.models.yolo.classes import COCO_CLASSES
@@ -61,7 +72,6 @@ from eioku_tpu_torch.utils.device import resolve_device
 
 SCENE_CHUNK = 256
 MAX_PENDING_PLACES = 48  # standalone places batches dispatched, not fetched
-_UNPORTED_SUBTASKS = ("ocr",)
 
 
 def _detect_i420(model, planes: torch.Tensor, conf_threshold: float) -> dict:
@@ -288,22 +298,92 @@ class _DetectionConsumer:
         self._pending = []
 
 
+class _OcrConsumer:
+    """Accumulates sampled frames for the OCR path: one CRAFT detection pass
+    per batch shared by every configured language, then one recognition pass
+    per script-specific recognizer (languages mapping to the same recognizer
+    share it)."""
+
+    MAX_PENDING = 8  # grayscale staging for undrained CRAFT batches
+
+    def __init__(self, cfg: dict, step: int, batch_size: int, cache_dir,
+                 src_wh: tuple[int, int], frame_ms: int, device: torch.device):
+        groups: dict[str, list[str]] = {}
+        for lang in cfg.get("languages") or ["en"]:
+            groups.setdefault(recognizer_for_language(lang), []).append(lang)
+        self.recognizers = []
+        for rec, langs in groups.items():
+            craft, crnn, charset, _ = ocr_models(cache_dir, rec, device)
+            self.craft = craft  # the same CRAFT weights for every group
+            self.recognizers.append((crnn, charset, langs))
+        self.device = device
+        self.min_conf = float(cfg.get("confidence_threshold", 0.0))
+        self.step = max(step, 1)
+        self.batch_size = batch_size
+        self.frame_ms = frame_ms
+        self.src_w, self.src_h = src_wh
+        self._frames: list[np.ndarray] = []
+        self._meta: list[tuple[int, int]] = []
+        self._pending: list[tuple] = []  # dispatched CRAFT, not yet fetched
+        self.results: list[dict] = []
+
+    def offer(self, frame: np.ndarray, frame_idx: int, t_ms: int) -> None:
+        if frame_idx % self.step != 0:
+            return
+        self._frames.append(frame)
+        self._meta.append((frame_idx, t_ms))
+        if len(self._frames) == self.batch_size:
+            self.flush()
+
+    def flush(self) -> None:
+        """Dispatch CRAFT asynchronously; quad extraction and recognition,
+        which need the maps on the host, happen in drain()."""
+        if not self._frames:
+            return
+        valid = len(self._frames)
+        det = [cv2.resize(f, (DETECT_W, DETECT_H), interpolation=cv2.INTER_AREA)
+               for f in self._frames]
+        det += [np.zeros_like(det[0])] * (self.batch_size - valid)
+        stack = np.stack(det)
+        # I420 upload and normalisation on the device: 1.5 B/px, not 12
+        scores = craft_scores_i420(self.craft,
+                                   torch.from_numpy(to_i420(list(stack))).to(self.device))
+        grays = [cv2.cvtColor(stack[i], cv2.COLOR_RGB2GRAY) for i in range(valid)]
+        self._pending.append((scores, grays, self._meta))
+        self._frames, self._meta = [], []
+        if len(self._pending) >= self.MAX_PENDING:
+            self.drain()
+
+    def drain(self) -> None:
+        sx = self.src_w / DETECT_W
+        sy = self.src_h / DETECT_H
+        for scores_dev, grays, meta in self._pending:
+            scores = scores_dev.cpu().numpy()
+            for i, gray in enumerate(grays):
+                crops, metas = detect_text_crops(gray, scores[i, :, :, 0],
+                                                 scores[i, :, :, 1])
+                if not crops:
+                    continue
+                frame_idx, t_ms = meta[i]
+                for crnn, charset, langs in self.recognizers:
+                    self.results.extend(ocr_rows(
+                        recognize_crops(crnn, crops, charset), metas, self.min_conf,
+                        sx, sy, langs, frame_idx, t_ms, self.frame_ms))
+        self._pending = []
+
+
 def run_visual_analysis(video_path: str, config: dict,
                         model_cache_dir: str | None = None,
                         device: str | torch.device | None = None
                         ) -> dict[str, list[dict]]:
     """Returns {task_type: results} for scene_detection, object_detection,
-    face_detection and place_classification (each present when its
+    face_detection, place_classification and ocr (each present when its
     sub-config is) from ONE decode pass."""
-    for key in _UNPORTED_SUBTASKS:
-        if config.get(key) is not None:
-            raise ModelNotAvailable(
-                f"visual_analysis sub-task {key!r} is not ported to "
-                "eioku_tpu_torch")
     scfg = config.get("scene_detection")
     ocfg = config.get("object_detection")
     fcfg = config.get("face_detection")
     pcfg = config.get("place_classification")
+    xcfg = config.get("ocr")
     for sub in (ocfg, fcfg):
         if sub is not None:
             check_supported(sub)
@@ -318,8 +398,8 @@ def run_visual_analysis(video_path: str, config: dict,
         interval_s = 1.0 / max(float(scfg.get("sample_fps", 4.0)), 1e-6)
     else:
         candidates = [float(c.get("frame_interval_s", d))
-                      for c, d in ((ocfg, 1.0), (fcfg, 3.0), (pcfg, 1.0))
-                      if c is not None]
+                      for c, d in ((ocfg, 1.0), (fcfg, 3.0), (pcfg, 1.0),
+                                   (xcfg, 2.0)) if c is not None]
         interval_s = min(candidates) if candidates else 1.0
     base_step = max(int(round(fps * interval_s)), 1)
 
@@ -382,6 +462,10 @@ def run_visual_analysis(video_path: str, config: dict,
         int(fcfg.get("batch_size", 64)), model_cache_dir, face_payload,
         frame_ms, src_wh, coord_scale, dev) \
         if fcfg is not None and not fuse_faces else None
+    ocr = _OcrConsumer(
+        xcfg, substep(float(xcfg.get("frame_interval_s", 2.0))),
+        int(xcfg.get("batch_size", 16)), model_cache_dir, src_wh, frame_ms,
+        dev) if xcfg is not None else None
 
     place_batch: list[np.ndarray] = []
     place_meta: list[tuple[int, int]] = []
@@ -479,6 +563,8 @@ def run_visual_analysis(video_path: str, config: dict,
                 objects.offer(batch.frames[slot].copy(), fi, t_ms)
             if faces is not None:
                 faces.offer(batch.frames[slot].copy(), fi, t_ms)
+            if ocr is not None:
+                ocr.offer(batch.frames[slot].copy(), fi, t_ms)
             if place_step and fi % place_step == 0:
                 place_batch.append(batch.frames[slot].copy())
                 place_meta.append((fi, t_ms))
@@ -497,11 +583,15 @@ def run_visual_analysis(video_path: str, config: dict,
     if faces is not None:
         faces.flush()
     flush_places()
+    if ocr is not None:
+        ocr.flush()
     if objects is not None:
         objects.drain()
     if faces is not None:
         faces.drain()
     drain_places()
+    if ocr is not None:
+        ocr.drain()
 
     out: dict[str, list[dict]] = {}
     if scfg is not None:
@@ -532,4 +622,6 @@ def run_visual_analysis(video_path: str, config: dict,
     if pcfg is not None:
         out["place_classification"] = objects.place_results if fuse_places \
             else place_results
+    if ocr is not None:
+        out["ocr"] = ocr.results
     return out

@@ -23,10 +23,9 @@ from eioku_tpu_torch.models.embed.minilm import (
     find_by_suffix,
     from_jax_params as trunk_from_jax_params,
     init_trunk_,
-    load_state,
     module_keys,
 )
-from eioku_tpu_torch.models.layers import Linear
+from eioku_tpu_torch.models.layers import Linear, load_state
 
 
 @dataclass(frozen=True)

@@ -21,7 +21,6 @@ Embeddings, the embedding layer norm, pooling and normalisation are fp32.
 """
 from __future__ import annotations
 
-import math
 import os
 from dataclasses import dataclass
 
@@ -29,7 +28,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from eioku_tpu_torch.models.layers import LayerNorm, Linear, gelu_erf, mha, split_heads
+from eioku_tpu_torch.models.layers import (
+    LayerNorm,
+    Linear,
+    gelu_erf,
+    jax_linear_state,
+    jax_ln_state,
+    load_state,
+    mha,
+    split_heads,
+    xavier_,
+)
 from eioku_tpu_torch.ops.flash_attention import flash_attention
 
 LN_EPS = 1e-12
@@ -121,14 +130,6 @@ class MiniLM(nn.Module):
         self.encoder = Encoder(cfg)
 
 
-def _xavier_(t: torch.Tensor, jax_shape: tuple[int, ...], generator: torch.Generator,
-             gain: float = 1.0) -> None:
-    """The JAX package's `xavier` on its [in, out] layout: uniform in
-    +-sqrt(6 / (shape[0] + shape[-1]))."""
-    bound = math.sqrt(6.0 / (jax_shape[0] + jax_shape[-1]))
-    t.uniform_(-bound, bound, generator=generator).mul_(gain)
-
-
 @torch.no_grad()
 def init_trunk_(model: MiniLM, generator: torch.Generator) -> None:
     """Random weights with the JAX package's scheme (`init_minilm_params`):
@@ -137,10 +138,10 @@ def init_trunk_(model: MiniLM, generator: torch.Generator) -> None:
     do): tests carry the JAX tree across with `from_jax_params` instead."""
     emb = model.embeddings
     for e in (emb.word_embeddings, emb.position_embeddings, emb.token_type_embeddings):
-        _xavier_(e.weight, tuple(e.weight.shape), generator, 0.05)
+        xavier_(e.weight, tuple(e.weight.shape), generator, 0.05)
     for m in model.modules():
         if isinstance(m, nn.Linear):
-            _xavier_(m.weight, (m.in_features, m.out_features), generator)
+            xavier_(m.weight, (m.in_features, m.out_features), generator)
             m.bias.zero_()
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
@@ -238,33 +239,6 @@ def convert_hf_state_dict(sd: dict, cfg: MiniLMConfig) -> dict[str, np.ndarray]:
     return find_by_suffix(sd, module_keys(MiniLM, cfg))
 
 
-def load_state(model: nn.Module, sd: dict[str, np.ndarray]) -> nn.Module:
-    """Copy a full state dict into `model` (its device and types), checking
-    every shape."""
-    params = model.state_dict()
-    missing = sorted(set(params) - set(sd))
-    if missing:
-        raise KeyError(f"state dict lacks {len(missing)} parameters, e.g. {missing[:3]}")
-    with torch.no_grad():
-        for name, p in params.items():
-            v = torch.from_numpy(np.array(sd[name], np.float32))
-            if tuple(v.shape) != tuple(p.shape):
-                raise ValueError(f"shape mismatch at {name}: checkpoint "
-                                 f"{tuple(v.shape)} vs model {tuple(p.shape)}")
-            p.copy_(v.to(p.device, p.dtype))
-    return model
-
-
-def _lin(sd: dict, prefix: str, p: dict) -> None:
-    sd[f"{prefix}.weight"] = np.asarray(p["w"], np.float32).T
-    sd[f"{prefix}.bias"] = np.asarray(p["b"], np.float32)
-
-
-def _ln(sd: dict, prefix: str, p: dict) -> None:
-    sd[f"{prefix}.weight"] = np.asarray(p["gamma"], np.float32)
-    sd[f"{prefix}.bias"] = np.asarray(p["beta"], np.float32)
-
-
 def from_jax_params(params: dict) -> dict[str, np.ndarray]:
     """The JAX package's MiniLM parameter tree (numpy or JAX arrays) -> the
     port's state dict: linear w [in, out] -> weight [out, in], gamma / beta
@@ -274,17 +248,17 @@ def from_jax_params(params: dict) -> dict[str, np.ndarray]:
                                                               np.float32),
           "embeddings.token_type_embeddings.weight": np.asarray(params["type_emb"],
                                                                 np.float32)}
-    _ln(sd, "embeddings.LayerNorm", params["emb_ln"])
+    jax_ln_state("embeddings.LayerNorm", params["emb_ln"], sd)
     for i, p in enumerate(params["layers"]):
         base = f"encoder.layer.{i}"
-        _lin(sd, f"{base}.attention.self.query", p["q"])
-        _lin(sd, f"{base}.attention.self.key", p["k"])
-        _lin(sd, f"{base}.attention.self.value", p["v"])
-        _lin(sd, f"{base}.attention.output.dense", p["o"])
-        _ln(sd, f"{base}.attention.output.LayerNorm", p["attn_ln"])
-        _lin(sd, f"{base}.intermediate.dense", p["ffn1"])
-        _lin(sd, f"{base}.output.dense", p["ffn2"])
-        _ln(sd, f"{base}.output.LayerNorm", p["ffn_ln"])
+        jax_linear_state(f"{base}.attention.self.query", p["q"], sd)
+        jax_linear_state(f"{base}.attention.self.key", p["k"], sd)
+        jax_linear_state(f"{base}.attention.self.value", p["v"], sd)
+        jax_linear_state(f"{base}.attention.output.dense", p["o"], sd)
+        jax_ln_state(f"{base}.attention.output.LayerNorm", p["attn_ln"], sd)
+        jax_linear_state(f"{base}.intermediate.dense", p["ffn1"], sd)
+        jax_linear_state(f"{base}.output.dense", p["ffn2"], sd)
+        jax_ln_state(f"{base}.output.LayerNorm", p["ffn_ln"], sd)
     return sd
 
 

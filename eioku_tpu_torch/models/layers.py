@@ -12,10 +12,14 @@ the same torch padding (`conv`), batch norm at the torchvision/insightface eps
 before a padded conv, where a fold is not exact), the k3 s2 p1 max pool and a
 per-channel `PReLU`.
 
-Transformers (Whisper, MiniLM): `layer_norm`, `Linear`, `gelu` (tanh form,
-Whisper), `gelu_erf` (exact form, MiniLM) and `mha` round where the JAX
-package's `layernorm`, `linear`, `jax.nn.gelu` and `mha` round, so a bf16
-model computes what the JAX package's bf16 model computes.
+CRAFT and CRNN (OCR): `BatchNorm` at eps 1e-5, `max_pool` (also with
+"VALID" (h, w) windows) and `upsample2x_bilinear`.
+
+Transformers (Whisper, MiniLM, CLIP): `layer_norm`, `Linear`, `gelu` (tanh
+form, Whisper), `gelu_erf` (exact form, MiniLM), `quick_gelu` (CLIP) and
+`mha` round where the JAX package's `layernorm`, `linear`, `jax.nn.gelu` and
+`mha` round, so a bf16 model computes what the JAX package's bf16 model
+computes.
 """
 from __future__ import annotations
 
@@ -98,15 +102,32 @@ class PReLU(nn.PReLU):
         return torch.where(x >= 0, x, x * w)
 
 
-def max_pool(x: torch.Tensor, k: int = 5, stride: int = 1) -> torch.Tensor:
-    """Max pool with symmetric (k-1)//2 padding: SPPF's k5 s1 p2, ResNet's
-    stem k3 s2 p1."""
-    return F.max_pool2d(x, k, stride=stride, padding=(k - 1) // 2)
+def max_pool(x: torch.Tensor, k: int | tuple[int, int] = 5,
+             stride: int | tuple[int, int] = 1, padding: str = "TORCH") -> torch.Tensor:
+    """Max pool. "TORCH" pads a square window k symmetrically by (k-1)//2:
+    SPPF's k5 s1 p2, ResNet's stem k3 s2 p1, CRAFT's k2 s2 p0 and k3 s1 p1.
+    "VALID" pads nothing, and then k and stride may be (h, w) pairs: CRNN's
+    (2, 1) pools."""
+    pad = 0 if padding == "VALID" else (k - 1) // 2
+    return F.max_pool2d(x, k, stride=stride, padding=pad)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample (ultralytics' Upsample mode)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear 2x upsample of NCHW with half-pixel centres (CRAFT's mode).
+    At the edges the source coordinate clamps to the border pixel, which is
+    what jax.image.resize(method="bilinear") gives there: it drops the
+    out-of-range tap and renormalises. No antialias: it upsamples."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation, x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
 
 
 @torch.no_grad()
@@ -152,6 +173,45 @@ def load_by_key_names(model: nn.Module, sd: dict, what: str) -> nn.Module:
 def jax_conv_weight(w) -> np.ndarray:
     """A JAX package conv weight (HWIO) -> torch's OIHW."""
     return np.ascontiguousarray(np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1)))
+
+
+def xavier_(t: torch.Tensor, jax_shape: tuple[int, ...], generator: torch.Generator,
+            gain: float = 1.0) -> None:
+    """The JAX package's `xavier` on its [in, out] layout: uniform in
+    +-sqrt(6 / (shape[0] + shape[-1])), times `gain`."""
+    bound = math.sqrt(6.0 / (jax_shape[0] + jax_shape[-1]))
+    t.uniform_(-bound, bound, generator=generator).mul_(gain)
+
+
+def load_state(model: nn.Module, sd: dict[str, np.ndarray]) -> nn.Module:
+    """Copy a full state dict into `model` (its device and types), checking
+    every shape; keys the model does not have are ignored."""
+    params = model.state_dict()
+    missing = sorted(set(params) - set(sd))
+    if missing:
+        raise KeyError(f"state dict lacks {len(missing)} parameters, e.g. {missing[:3]}")
+    with torch.no_grad():
+        for name, p in params.items():
+            v = torch.from_numpy(np.array(sd[name], np.float32))
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(f"shape mismatch at {name}: checkpoint "
+                                 f"{tuple(v.shape)} vs model {tuple(p.shape)}")
+            p.copy_(v.to(p.device, p.dtype))
+    return model
+
+
+def jax_linear_state(prefix: str, p: dict, out: dict) -> None:
+    """A JAX package linear {w [in, out], b} -> nn.Linear's keys under
+    `prefix` in `out`."""
+    out[f"{prefix}.weight"] = np.asarray(p["w"], np.float32).T
+    out[f"{prefix}.bias"] = np.asarray(p["b"], np.float32)
+
+
+def jax_ln_state(prefix: str, p: dict, out: dict) -> None:
+    """A JAX package layer norm {gamma, beta} -> nn.LayerNorm's keys under
+    `prefix` in `out`."""
+    out[f"{prefix}.weight"] = np.asarray(p["gamma"], np.float32)
+    out[f"{prefix}.bias"] = np.asarray(p["beta"], np.float32)
 
 
 def jax_bn_state(prefix: str, p: dict, out: dict) -> None:

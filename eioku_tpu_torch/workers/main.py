@@ -3,8 +3,8 @@
 Port of eioku_tpu/workers/main.py: queue `ml_jobs`, WORKER_MAX_JOBS default
 1 to serialise the accelerator, job timeout 3600 s, max_tries 1, poll
 0.1 s, schema registration at startup, a reconcile cron every 5 min. The
-engine, the semantic index and the reranker run on CUDA; EIOKU_FORCE_CPU=1
-puts them on the CPU instead (tests, hosts without a card). Without that
+engine, the semantic and visual indexes and the reranker run on CUDA;
+EIOKU_FORCE_CPU=1 puts them on the CPU instead (tests, hosts without a card). Without that
 variable, a host without CUDA makes the worker raise at start: it never
 carries on on the CPU. Multi-host start-up
 (the JAX package's initialize_distributed) is not ported.

@@ -42,6 +42,7 @@ from eioku_tpu_torch.db.connection import Database
 from eioku_tpu_torch.domain.models import Task, TaskStatus, Video
 from eioku_tpu_torch.index.rerank import Reranker
 from eioku_tpu_torch.index.semantic import SemanticIndex
+from eioku_tpu_torch.index.visual import VisualIndex
 from eioku_tpu_torch.ml.engine import InferenceEngine
 from eioku_tpu_torch.queue.worker import WorkerSettings
 from eioku_tpu_torch.utils.hashing import hash_file
@@ -49,6 +50,8 @@ from eioku_tpu_torch.utils.metrics import maybe_profile
 from eioku_tpu_torch.workers import main as worker_main
 from eioku_tpu_torch.workers.main import build_worker, discover_at_start
 from eioku_tpu_torch.workers.task_handler import process_ml_task
+from test_torch_ocr import _write_text_clip as write_text_clip
+from test_torch_ocr import single_torch_thread, use_small_detector, write_ocr_checkpoints
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -72,6 +75,7 @@ COPIED = [
     "services/find_service.py", "services/jump_service.py",
     "ml/metadata.py", "workers/__init__.py", "workers/task_handler.py",
     "models/embed/tokenizer.py", "models/embed/native_tokenizer.py",
+    "models/clip/tokenizer.py",
 ]
 
 # Host modules the port changes: the top-level names that differ, and why.
@@ -82,11 +86,11 @@ CHANGED = {
     "api/__init__.py": ({"__all__"},
                         "create_app and the controllers are not ported yet"),
     "api/app.py": ({"build_context", "create_app"},
-                   "context only: no create_app; the semantic index and the "
-                   "reranker take a device; no visual index until that slice"),
+                   "context only: no create_app; the semantic index, the "
+                   "reranker and the visual index take a device"),
     "workers/main.py": ({"build_worker", "main"},
-                        "EIOKU_FORCE_CPU picks the engine's and the semantic "
-                        "index's device; no initialize_distributed; start-up "
+                        "EIOKU_FORCE_CPU picks the engine's and the indexes' "
+                        "device; no initialize_distributed; start-up "
                         "discovery"),
 }
 
@@ -149,7 +153,7 @@ def test_every_host_module_is_listed():
              for d in host_dirs for p in (REPO / "eioku_tpu_torch" / d).rglob("*.py")}
     found |= {"utils/hashing.py", "utils/logging.py", "utils/metrics.py",
               "ml/metadata.py", "models/embed/tokenizer.py",
-              "models/embed/native_tokenizer.py"}
+              "models/embed/native_tokenizer.py", "models/clip/tokenizer.py"}
     assert found == set(COPIED) | set(CHANGED)
 
 
@@ -529,20 +533,49 @@ def test_changed_file_fails_with_hash_mismatch(tmp_path):
 
 @pytest.mark.parametrize("config,task_type", [
     ({"active_task_types": ["ocr"]}, "ocr"),
-    # discovery folds an active ocr into visual_analysis, which the port
-    # refuses whole until OCR is ported
+    # discovery folds an active ocr into visual_analysis
     ({"active_task_types": ["scene_detection", "ocr"], "combined_visual": True},
      "visual_analysis"),
 ])
-def test_unported_task_fails_through_the_queue(tmp_path, config, task_type):
-    clips = _clip_dir(tmp_path)
-    ctx = _context(PORT, tmp_path, scan_paths=[str(clips)], **config)
+def test_ocr_task_completes_through_the_queue(tmp_path, config, task_type, monkeypatch):
+    """OCR, standalone or folded, runs from the queue: its rows land in
+    ocr_fts and its semantic_indexing follow-up indexes them. The model
+    cache holds tests/test_torch_ocr.py's checkpoints, which find text on
+    its text clip at its small detector input."""
+    use_small_detector(monkeypatch)
+    clips = tmp_path / "videos"
+    clips.mkdir()
+    write_text_clip(str(clips / "text.mp4"))
+    cache = tmp_path / "models"
+    cache.mkdir()
+    write_ocr_checkpoints(cache)
+    cfg = AppConfig(scan_paths=[str(clips)], semantic_search=True, visual_search=False,
+                    model_cache_dir=str(cache),
+                    task_settings={"ocr": {"batch_size": 4, "decode_fast": 0},
+                                   "scene_detection": {"decode_fast": 0}}, **config)
+    ctx = build_context(cfg, db=Database(f"sqlite:///{tmp_path}/ocr.db"), device="cpu")
     discover_at_start(ctx)
-    _drain(PORT, ctx, engine=InferenceEngine(device="cpu"))
-    task = _one_task(ctx)
-    assert task.task_type == task_type
-    assert task.status is TaskStatus.FAILED
-    assert task.error.startswith("ModelNotAvailable")
+    engine = RecordingEngine(model_cache_dir=str(cache), device="cpu")
+    with single_torch_thread():  # the CPU LSTM under the suite's load
+        _drain(PORT, ctx, engine=engine)
+    tasks = {t.task_type: t for t in ctx.tasks.find(limit=10)}
+    assert set(tasks) == {task_type, "semantic_indexing"}
+    assert all(t.status is TaskStatus.COMPLETED for t in tasks.values()), \
+        [(t.task_type, t.error) for t in tasks.values()]
+    (_, _, returned), = [r for r in engine.returned if r[0] == task_type]
+    returned = {"ocr": returned} if task_type == "ocr" else returned
+    rows = returned["ocr"]
+    assert rows
+    db_rows = _artifact_rows(ctx)
+    for sub, artifact_type in (("ocr", "ocr.text"), ("scene_detection", "scene")):
+        got = [r[1:] for r in db_rows if r[0] == artifact_type]
+        assert got == [(r["span_start_ms"], r["span_end_ms"], r["payload"])
+                       for r in returned.get(sub, [])], sub
+    fts = _rows(ctx.db, "SELECT f.text, m.start_ms FROM ocr_fts f JOIN ocr_fts_meta m "
+                        "ON m.rowid = f.rowid ORDER BY m.rowid")
+    assert fts == [(r["payload"]["text"], r["span_start_ms"]) for r in rows]
+    chunks = _rows(ctx.db, "SELECT source, start_ms FROM embedding_chunks ORDER BY slot")
+    assert chunks and {c[0] for c in chunks} == {"ocr"}
 
 
 def test_semantic_indexing_fails_not_configured(tmp_path):
@@ -560,17 +593,48 @@ def test_semantic_indexing_fails_not_configured(tmp_path):
 
 
 def test_build_context_warns_and_builds_no_index(tmp_path, caplog):
-    # the semantic index and the reranker are built (their device is
-    # resolved only when a model is needed); the visual index alone is not
+    # every index the config asks for is built, without a warning: the
+    # semantic index, the reranker and the visual index (their device is
+    # resolved only when a model is needed)
     cfg = AppConfig(scan_paths=[], semantic_search=True, visual_search=True)
     with caplog.at_level("WARNING", logger="eioku_tpu_torch.api.app"):
         ctx = build_context(cfg, db=Database(f"sqlite:///{tmp_path}/w.db"))
     assert isinstance(ctx.extra["semantic_index"], SemanticIndex)
     assert isinstance(ctx.extra["reranker"], Reranker)
-    assert "visual_index" not in ctx.extra
-    (record,) = [r for r in caplog.records if r.name == "eioku_tpu_torch.api.app"]
-    assert "visual index" in record.getMessage()
-    assert "semantic" not in record.getMessage()
+    assert isinstance(ctx.extra["visual_index"], VisualIndex)
+    assert ctx.extra["visual_index"].device is None
+    assert not [r for r in caplog.records if r.name == "eioku_tpu_torch.api.app"]
+
+
+def test_scene_result_enqueues_visual_indexing_which_completes(tmp_path):
+    """A finished scene_detection enqueues visual_indexing; the port's worker
+    runs it on its VisualIndex (full-width CLIP, random weights, on the CPU):
+    one frame_embeddings row per scene midpoint, found by search."""
+    cfg = AppConfig(scan_paths=[], semantic_search=False, visual_search=True,
+                    model_cache_dir=str(tmp_path))
+    ctx = build_context(cfg, db=Database(f"sqlite:///{tmp_path}/v.db"), device="cpu")
+    path = tmp_path / "clip.mp4"
+    _write_clip(str(path), SCENE_SEGMENTS)
+    ctx.videos.save(Video(id="v", path=str(path), file_hash=hash_file(str(path))))
+    ctx.tasks.save(Task(id="t", video_id="v", task_type="scene_detection", config={}))
+    asyncio.run(process_ml_task({"app_ctx": ctx, "engine": ScriptedEngine("p")}, "t",
+                                "scene_detection", "v", str(path), {}))
+    jobs = [j.args[1] for j in ctx.producer.queue.list_jobs(limit=10)]
+    assert "visual_indexing" in jobs
+    worker = build_worker(app_ctx=ctx, engine=InferenceEngine(device="cpu"),
+                          settings=WorkerSettings(max_jobs=1, poll_delay_s=0.01))
+    assert worker.ctx["visual_index"] is ctx.extra["visual_index"]
+    asyncio.run(worker.drain())
+    tasks = {t.task_type: t for t in ctx.tasks.find(limit=10)}
+    assert tasks["visual_indexing"].status is TaskStatus.COMPLETED, \
+        tasks["visual_indexing"].error
+    rows = _rows(ctx.db, "SELECT ts_ms, scene_index, model FROM frame_embeddings "
+                         "ORDER BY slot")
+    assert rows == [((s["span_start_ms"] + s["span_end_ms"]) // 2,
+                     s["payload"]["scene_index"], "clip-vit-b32") for s in _SCENES]
+    hits = ctx.extra["visual_index"].search("a green field", top_k=5)
+    assert sorted(h["ts_ms"] for h in hits) == [r[0] for r in rows]
+    assert all(h["video_id"] == "v" and h["source"] == "visual" for h in hits)
 
 
 def test_semantic_indexing_completes_and_search_finds_the_video(tmp_path):

@@ -4,8 +4,9 @@ package (CPU).
 The combined visual pass (scenes, YOLOv8n objects, yolov8n-face faces with
 ArcFace embeddings, ResNet18-Places365 places) on each of its routes, and
 standalone scene and object detection, run through both packages on the
-same synthetic clips; the port's engine refuses what it does not cover; the
-port imports nothing of JAX or of the JAX package.
+same synthetic clips; the engine runs OCR standalone and folded into the
+pass, and refuses what it does not cover; the port imports nothing of JAX
+or of the JAX package.
 """
 import ast
 import pathlib
@@ -38,6 +39,7 @@ from eioku_tpu_torch.ml.engine import InferenceEngine, ModelNotAvailable
 from eioku_tpu_torch.ml.scenes import detect_scenes
 from eioku_tpu_torch.models.face_embed.model import from_jax_params as arcface_from_jax
 from eioku_tpu_torch.models.resnet.model import from_jax_params as resnet_from_jax
+from test_torch_ocr import single_torch_thread
 from test_torch_places import assert_place_rows_match
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -440,7 +442,7 @@ _STILL_REFUSED = {"transcription": {"compute_dtype": "int8"},
 
 
 @pytest.mark.parametrize("task_type", [
-    "face_detection", "transcription", "ocr",
+    "face_detection", "transcription",
     "object_detection", "semantic_indexing", "speaker_diarization",
     "no_such_task"])
 def test_unported_tasks_raise(task_type, scene_video):
@@ -449,10 +451,46 @@ def test_unported_tasks_raise(task_type, scene_video):
             task_type, scene_video, _STILL_REFUSED.get(task_type, {}))
 
 
+def _check_ocr_rows(rows: list[dict]) -> None:
+    """Valid ocr.text payloads of the clip's first frame (the 7 s grid of
+    the 7 s clip: one 384x640 CRAFT frame, cheap on the CPU)."""
+    from eioku_tpu_torch.domain.schema_registry import SchemaRegistry, register_all_schemas
+
+    register_all_schemas()
+    for r in rows:
+        SchemaRegistry.validate("ocr.text", 1, r["payload"])
+        assert r["payload"]["languages"] == ["en"]
+        assert r["payload"]["frame_index"] == 0
+        assert r["span_end_ms"] - r["span_start_ms"] == 100
+
+
+# OCR runs standalone and folded into visual_analysis: the configs the
+# engine refused before OCR was ported (tests/test_torch_ocr.py holds the
+# rows against the JAX package)
+_OCR_ONE_FRAME = {"batch_size": 1, "frame_interval_s": 7.0}
+
+
+@pytest.mark.parametrize("task_type,config", [
+    ("ocr", _OCR_ONE_FRAME),
+    ("visual_analysis", {"object_detection": {}, "place_classification": {},
+                         "ocr": _OCR_ONE_FRAME}),
+    ("visual_analysis", {"scene_detection": {}, "ocr": _OCR_ONE_FRAME}),
+])
+def test_ocr_task_and_folds_run(task_type, config, scene_video):
+    with single_torch_thread():  # the CPU LSTM under the suite's load
+        out = InferenceEngine(device="cpu").run_task(task_type, scene_video,
+                                                     {**config, "decode_fast": 0})
+    if task_type == "ocr":
+        _check_ocr_rows(out)
+        return
+    assert set(out) == set(config)
+    _check_ocr_rows(out["ocr"])
+    for sub in set(config) - {"ocr"}:
+        assert out[sub], sub
+
+
 @pytest.mark.parametrize("config,needle", [
     ({"scene_detection": {}, "face_detection": {"int8": True}}, "int8"),
-    ({"object_detection": {}, "place_classification": {}, "ocr": {}}, "ocr"),
-    ({"scene_detection": {}, "ocr": {}}, "ocr"),
     ({"object_detection": {"int8": True}}, "int8"),
     ({"object_detection": {"preprocess": "device"}}, "preprocess"),
     ({"object_detection": {"data_parallel": True}}, "data-parallel"),
