@@ -146,13 +146,41 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    VisualIndex.index_video on the clip (no scenes: 10 s stride keyframes,
    seek-decoded), search (every keyframe, highest score first) and similar
    (anchor excluded);
-8. JSON lines: each slice's results, phase 5's, 6's and 7's, each phase's
-   seconds, and {"kernels": [...]} with each kernel's launches in the
-   measured run, max error, kernel / plain / bound / library times (K1's
+8. the audio slice, each number printed beside the card's name and power
+   limit: 8.1 QuantLinear card vs CPU at turbo's widths (1280->1280,
+   1280->5120, 5120->1280) and fp32 activations: w_q, the int8 activations
+   and the int32 accumulators equal, outputs within 1e-6 of their largest
+   |value|, then ms per call beside the bf16 Linear at 4 rows;
+   transcription with large-v3-turbo at full width (random weights; int8,
+   its default, then bf16; each loaded fresh, then measured) on the wav with
+   the bounded decode (AUDIO_BOUND): wall, audio-s/s, peak MiB, weight MiB,
+   K3 32 launches per encoder call; the semantic index with embed_int8 on
+   phase 5's seeded MiniLM: embed-only chunks/s beside the bf16 index's (in
+   turns), cosine >= 0.99 to the bf16 embeddings; 8.2 seeded bf16
+   checkpoints (turbo; large-v3) with a vocab.json and merges.txt, written
+   (timed apart) and deleted: word_timestamps and condition_on_previous_text
+   on turbo (int8), draft_model on large-v3 drafted by turbo (one batch: K3
+   64 launches, two encoders), each through run_task: walls, words per row,
+   windows decoded serially, accept_rate; phase 4d also transcribes its tiny
+   tree with each option on the card and on the CPU, rows equal; 8.3 a
+   seeded Silero-v5-width VAD exported with the port's exporter (head
+   VAD_HEAD): vad_probs card vs CPU at fp32 within 1e-5 at its init and
+   within 8e-5 with the head scaled by 8, and the activity of
+   split_windows on the wav through silero_vad.ckpt card vs CPU equal
+   wherever the probabilities keep more than 1e-4 from 0.5; 8.4 ECAPA-TDNN
+   at full published width (random, seed 0): fp32 card vs CPU within
+   MODEL_TOL, bf16 cosine >= 0.99 to fp32; run_task("speaker_diarization")
+   on the wav: windows, windows/s, turns, wall, peak MiB. Phase 4e also
+   enqueues one speaker_diarization job, which the worker completes with
+   speaker.turn rows equal to the engine's;
+9. JSON lines: each slice's results, phase 5's, 6's, 7's and 8's, each
+   phase's seconds, and {"kernels": [...]} with each kernel's launches in
+   the measured run, max error, kernel / plain / bound / library times (K1's
    and K2's entries also with their launches in the pass with OCR and
-   through the worker; K3's with its launches per MiniLM call at S = 512
-   and on the indexing path);
-9. the card's name and power limit (nvidia-smi), then, as the last line,
+   through the worker; K3's with its launches per MiniLM call at S = 512,
+   on the indexing path, in turbo's int8 and bf16 runs and in a speculative
+   batch);
+10. the card's name and power limit (nvidia-smi), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits nonzero and
@@ -160,6 +188,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import math
@@ -214,6 +243,11 @@ WHISPER_CONFIG = {"model": "large-v3", "random_full_size": True,
                   "batch_size": 4, "max_tokens": 224}
 TINY_CONFIG = {"model": "tiny", "language": "en", "compute_dtype": "float32",
                "temperatures": [], "max_tokens": 32, "no_speech_threshold": 2.0}
+TINY_OPTIONS = {  # 4d's options, card against CPU
+    "word_timestamps": {"word_timestamps": True},
+    "condition_on_previous_text": {"condition_on_previous_text": True},
+    "draft_model": {"draft_model": "tiny", "beam_size": 1, "timestamps": False},
+}
 TOKEN_MARGIN_TOL = 1e-3  # CPU top-2 log-prob gap where card and CPU part
 ENC_TOL = 1e-3  # tiny encoder, fp32 card (TF32 off) vs CPU
 # phase 5, the semantic layer: MiniLM-L6 and the cross-encoder at full width
@@ -234,6 +268,22 @@ RETRIEVAL_SIZES = (10_000, 262_144)  # bench.py:1046's N, and 192 MiB of f16
 N_QUERIES = 30
 GAP_TOL = 1e-3  # card vs CPU top-10 compared where the 10th score leads the 11th by more
 CLIP_FRAMES = 128  # embed_frames' measured batch of frames
+# phase 8, the audio slice
+INT8_WIDTHS = ((1280, 1280), (1280, 5120), (5120, 1280))  # turbo's linears (in, out)
+INT8_ROWS = (4, 1500)  # a greedy decode step of 4 windows; one window's encoder rows
+INT8_TOL = 1e-6  # QuantLinear card vs CPU, relative to the largest |value|
+AUDIO_BOUND = {"temperatures": [], "max_tokens": 32, "batch_size": 4}  # the bounded decode
+TURBO_CONFIG = {"model": "large-v3-turbo", "random_full_size": True, **AUDIO_BOUND}
+# the options on seeded checkpoints: random weights emit rows; never gate them
+OPTION_CONFIG = {"language": "en", "no_speech_threshold": 2.0, **AUDIO_BOUND}
+EMBED_INT8_COS = 0.99  # int8 vs bf16 MiniLM embeddings on the card
+VAD_HEAD = (8.0, -3.0)  # output weight scale and bias: passes the loader's check
+# vad_probs fp32 card (TF32 off) vs CPU over the wav's 4,688 chunks: at the
+# model's init; times VAD_HEAD's scale with the checkpoint's scaled head
+VAD_TOL = 1e-5
+VAD_MARGIN = 1e-4  # activity compared where the probability keeps this far from 0.5
+ECAPA_WINDOWS = 32  # one diarization batch of 1.5 s windows
+ECAPA_COS = 0.99  # ECAPA bf16 vs fp32 embeddings on the card
 
 
 def log(msg: str) -> None:
@@ -930,6 +980,23 @@ def _count_calls(module, name: str) -> list:
     return calls
 
 
+@contextlib.contextmanager
+def _counting(module, name: str, record=lambda out: 1):
+    """Wrap module.name for the duration of a `with`, which yields a list
+    that each call appends record(its return value) to."""
+    fn, calls = getattr(module, name), []
+
+    def counted(*a, **kw):
+        out = fn(*a, **kw)
+        calls.append(record(out))
+        return out
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def phase_transcription(dev, wav: str) -> dict:
     import torch
 
@@ -1129,12 +1196,57 @@ def phase_card_vs_cpu(dev, wav: str, workdir: str) -> dict:
             raise AssertionError("the temperature ladder gave non-finite rows")
         log(f"tiny with the temperature ladder on the card: "
             f"{time.perf_counter() - t:.3f} s, {len(ladder)} rows")
+        options = _tiny_options_card_vs_cpu(dev, wav, workdir, cache)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True
         transcribe._load_model.cache_clear()
     return {"enc_max_abs_err": enc_err, "rows_equal": equal,
-            "rows": len(rows["cpu"]), "margin": margin}
+            "rows": len(rows["cpu"]), "margin": margin, "options": options}
+
+
+def _same_rows(a: list, b: list) -> bool:
+    """Rows equal but for the confidence, which may differ by 1e-4."""
+    strip = lambda rs: [{**r, "payload": {k: v for k, v in r["payload"].items()  # noqa: E731
+                                          if k != "confidence"}} for r in rs]
+    return strip(a) == strip(b) and all(
+        abs(x["payload"]["confidence"] - y["payload"]["confidence"]) <= 1e-4
+        for x, y in zip(a, b))
+
+
+def _tiny_options_card_vs_cpu(dev, wav: str, workdir: str, cache: str) -> dict:
+    """4d with each Whisper option on: the tiny tree, in a cache of its own
+    with a vocabulary (so that words exist), transcribed on the card (fp32,
+    TF32 off) and on the CPU; the rows must be equal."""
+    from eioku_tpu_torch.ml import transcribe
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+
+    opt_cache = os.path.join(workdir, "models_options")
+    os.makedirs(opt_cache)
+    os.link(os.path.join(cache, "whisper-tiny.npz"),
+            os.path.join(opt_cache, "whisper-tiny.npz"))
+    write_tokenizer_files(opt_cache)
+    out = {}
+    for name, option in TINY_OPTIONS.items():
+        rows = {}
+        with _counting(transcribe, "speculative_greedy_decode",
+                       lambda out: out[1]) as rates:
+            for where in ("cuda", "cpu"):
+                rows[where] = InferenceEngine(
+                    model_cache_dir=opt_cache, device=dev if where == "cuda" else "cpu"
+                ).run_task("transcription", wav, {**TINY_CONFIG, **option})
+        words = sum(len(r["payload"]["words"]) for r in rows["cpu"])
+        if not rows["cpu"] or not _same_rows(rows["cuda"], rows["cpu"]):
+            raise AssertionError(f"tiny {name}: card rows ({len(rows['cuda'])}) differ "
+                                 f"from the CPU's ({len(rows['cpu'])})")
+        if (name == "word_timestamps") != bool(words) or \
+                (name == "draft_model") != bool(rates):
+            raise AssertionError(f"tiny {name}: {words} words, {len(rates)} "
+                                 f"speculative decodes")
+        out[name] = {"rows": len(rows["cpu"]), "words": words, "accept_rates": rates}
+        log(f"tiny {name}: card rows equal the CPU's ({len(rows['cpu'])} rows, "
+            f"{words} words, accept rates {out[name]['accept_rates']})")
+    return out
 
 
 def _fts5_enabled() -> bool:
@@ -1312,9 +1424,22 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
     log(f"worker: find {word!r} in the transcript: {len(found)} hits ({fts} FTS rows), "
         f"first at {found[0]['jump_to']}")
     semantic = _check_semantic_followup(ctx, wav_video.id, transcript)
+    # an explicit speaker_diarization job: discovery creates none
+    dz_id = str(uuid.uuid4())
+    ctx.producer.enqueue_task(dz_id, "speaker_diarization", wav_video.id, wav, {})
+    drain("speaker_diarization")
+    if ctx.tasks.get(dz_id).status is not TaskStatus.COMPLETED:
+        raise AssertionError(f"worker: speaker_diarization {ctx.tasks.get(dz_id).error}")
+    n_turns = _check_rows_equal_engine(
+        ctx.db, {"speaker_diarization": returned["speaker_diarization"]}, producer,
+        "worker speaker_diarization")
+    if not n_turns:
+        raise AssertionError("worker: speaker_diarization wrote no speaker.turn rows")
     per_task = {t: {"worker_s": worker_s[t], "engine_s": engine_s[t],
                     "host_stack_s": worker_s[t] - engine_s[t]}
-                for t in ("visual_analysis", "metadata_extraction", "transcription")}
+                for t in ("visual_analysis", "metadata_extraction", "transcription",
+                          "speaker_diarization")}
+    per_task["speaker_diarization"]["artifacts"] = n_turns
 
     # the same task re-run under EIOKU_PROFILE_DIR: the handler's
     # maybe_profile must trace the engine's thread, K3 included; the walls'
@@ -2076,6 +2201,400 @@ def phase_clip(dev, workdir: str, card: str) -> dict:
             "card": card}
 
 
+# -- phase 8: the audio slice ---------------------------------------------------------
+
+
+def _bytes_of(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def phase_int8_linears(dev, card: str) -> dict:
+    """8.1 QuantLinear on the card against the CPU at turbo's widths, fp32
+    activations: w_q, the int8 activations and the int32 accumulators equal,
+    outputs within INT8_TOL of their largest |value|; then ms per call at
+    the decoder's rows, bf16 activations, beside the bf16 Linear."""
+    import torch
+
+    from eioku_tpu_torch.models.layers import Linear, QuantLinear
+    from eioku_tpu_torch.ops.quant import int_mm, quant_act
+
+    out = {}
+    g = torch.Generator().manual_seed(0)
+    for k, n in INT8_WIDTHS:
+        lin = Linear(k, n)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn((n, k), generator=g) * 0.02)
+            lin.bias.copy_(torch.randn(n, generator=g) * 0.01)
+        q_cpu = QuantLinear.from_linear(lin)
+        q_card = QuantLinear.from_linear(lin.to(dev))
+        if not torch.equal(q_card.w_q.cpu(), q_cpu.w_q) or \
+                not torch.equal(q_card.w_s.cpu(), q_cpu.w_s):
+            raise AssertionError(f"int8 {k}->{n}: w_q or w_s differ card vs CPU")
+        errs = {}
+        for rows in INT8_ROWS:
+            x = torch.randn((rows, k), generator=g)
+            xq, sx = quant_act(x)
+            xq_d, sx_d = quant_act(x.to(dev))
+            if not torch.equal(xq_d.cpu(), xq) or not torch.equal(sx_d.cpu(), sx):
+                raise AssertionError(f"int8 {k}->{n} rows {rows}: int8 activations differ")
+            if not torch.equal(int_mm(xq_d, q_card.w_q).cpu(), int_mm(xq, q_cpu.w_q)):
+                raise AssertionError(f"int8 {k}->{n} rows {rows}: int32 accumulators differ")
+            want = q_cpu(x)
+            err = float((q_card(x.to(dev)).cpu() - want).abs().max())
+            scale = float(want.abs().max())
+            if not err <= INT8_TOL * scale:
+                raise AssertionError(f"int8 {k}->{n} rows {rows}: {err} vs scale {scale}")
+            errs[rows] = err / scale
+        xb = torch.randn((INT8_ROWS[0], k), generator=g).to(dev, torch.bfloat16)
+        lin_b = lin.to(torch.bfloat16)
+        q_ms = cuda_ms(q_card, args=((xb,),))
+        b_ms = cuda_ms(lin_b, args=((xb,),))
+        out[f"{k}x{n}"] = {"max_rel_err": errs, "int8_ms": q_ms, "bf16_ms": b_ms}
+        log(f"QuantLinear {k}->{n}: card equals CPU (w_q, activations, int32); "
+            f"outputs within {max(errs.values()):.2e} of max |value|; at "
+            f"{INT8_ROWS[0]} rows bf16: int8 {q_ms:.4f} ms, bf16 Linear {b_ms:.4f} ms "
+            f"per call ({card})")
+    return out
+
+
+def phase_int8_transcription(dev, wav: str, card: str) -> dict:
+    """8.1 large-v3-turbo at full width (random weights) through run_task:
+    int8 (its default), then bf16; each loaded fresh (a warm-up call that
+    loads, casts and quantizes), then a measured call: wall, audio-s/s,
+    peak MiB, weight bytes, K3's launches (32 per encoder call)."""
+    import torch
+
+    from eioku_tpu_torch.ml import transcribe
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.models.layers import QuantLinear
+    from eioku_tpu_torch.ops import _cuda
+
+    from eioku_tpu_torch.models.whisper.model import WhisperConfig
+
+    layers = WhisperConfig("large-v3-turbo").n_enc_layers
+    engine = InferenceEngine(device=dev)
+    out = {}
+    for name, cfg in (("int8", TURBO_CONFIG),
+                      ("bfloat16", {**TURBO_CONFIG, "compute_dtype": "bfloat16"})):
+        transcribe._load_model.cache_clear()
+        torch.cuda.empty_cache()
+        _, load_s, _ = _peak_run(engine.run_task, "transcription", wav, cfg)
+        model = transcribe._load_model("large-v3-turbo", None, name if name == "int8"
+                                       else "bfloat16", True, dev)[0]
+        quantized = isinstance(model.decoder.blocks[0].mlp[0], QuantLinear)
+        if quantized != (name == "int8"):
+            raise AssertionError(f"turbo {name}: quantized linears {quantized}")
+        with _counting(transcribe, "whisper_encode") as enc:
+            _cuda.reset_launch_counts()
+            rows, wall, peak = _peak_run(engine.run_task, "transcription", wav, cfg)
+            k3 = _cuda.launch_counts()["flash_attention"]
+        if not enc or k3 != layers * len(enc) or rows != []:
+            raise AssertionError(f"turbo {name}: K3 {k3} for {len(enc)} encoder calls, "
+                                 f"{len(rows)} rows (random weights emit none)")
+        weights = _bytes_of(model)
+        out[name] = {"wall_s": wall, "audio_s_per_s": AUDIO_SECONDS / wall,
+                     "peak_mib": peak, "weight_mib": weights / 2**20,
+                     "first_call_s": load_s, "k3_launches": k3, "encoder_calls": len(enc)}
+        log(f"transcription large-v3-turbo {name}: {wall:.3f} s wall, "
+            f"{AUDIO_SECONDS / wall:.2f} audio-s/s, peak {peak:.1f} MiB, weights "
+            f"{weights / 2**20:.1f} MiB; first call (load{', quantize' if quantized else ''}) "
+            f"{load_s:.3f} s; K3 {k3} launches in {len(enc)} encoder calls ({card})")
+    transcribe._load_model.cache_clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_embed_int8(dev, workdir: str, card: str) -> dict:
+    """8.1 SemanticIndex with embed_int8 on phase 5's seeded MiniLM: embed
+    only at batch 256 x S 256 beside the bf16 index, in turns (bf16, int8,
+    int8, bf16), and the cosine of each int8 embedding to the bf16 one."""
+    import torch
+
+    from eioku_tpu_torch.api.app import build_context
+    from eioku_tpu_torch.config.settings import AppConfig
+    from eioku_tpu_torch.index.semantic import SemanticIndex
+    from eioku_tpu_torch.models.embed.minilm import minilm_embed
+    from eioku_tpu_torch.models.layers import QuantLinear
+
+    root = os.path.join(workdir, "int8_embed")
+    cache = os.path.join(root, "models")
+    write_minilm_checkpoint(cache)
+    indexes = {}
+    for name, int8 in (("bfloat16", False), ("int8", True)):
+        ctx = build_context(AppConfig(
+            scan_paths=[], database_url=f"sqlite:///{root}/{name}.db", auto_discover=False,
+            semantic_search=False, visual_search=False, model_cache_dir=cache,
+            index_dir=os.path.join(root, name), embed_int8=int8))
+        indexes[name] = SemanticIndex(ctx, batch_size=EMBED_BATCH, device=dev)
+        indexes[name]._ensure_model()
+    layer = indexes["int8"]._model.encoder.layer[0].attention.self.query
+    if not isinstance(layer, QuantLinear) or not indexes["int8"].pretrained:
+        raise AssertionError("the int8 index did not quantize the written checkpoint")
+    g = torch.Generator().manual_seed(0)
+    vocab = indexes["int8"]._cfg.vocab_size
+    inputs = [torch.randint(0, vocab, (EMBED_BATCH, EMBED_SEQ), generator=g).to(dev)
+              for _ in range(EMBED_BATCHES)]
+    mask = torch.ones((EMBED_BATCH, EMBED_SEQ), dtype=torch.int32, device=dev)
+
+    def rate(name: str) -> float:
+        model = indexes[name]._model
+        for x in inputs[:2]:
+            minilm_embed(model, x, mask)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for x in inputs[2:]:
+            out = minilm_embed(model, x, mask)
+        float(out.sum())
+        return (EMBED_BATCHES - 2) * EMBED_BATCH / (time.perf_counter() - t)
+
+    rates = {"bfloat16": [], "int8": []}
+    for name in ("bfloat16", "int8", "int8", "bfloat16"):
+        rates[name].append(rate(name))
+    rng = np.random.default_rng(3)
+    texts = [" ".join(rng.choice(SEM_WORDS, 10)) for _ in range(EMBED_BATCH)]
+    emb = {name: idx.embed_texts(texts) for name, idx in indexes.items()}
+    cos = np.sum(emb["int8"] * emb["bfloat16"], axis=1)
+    log(f"embed only, batch {EMBED_BATCH} x S {EMBED_SEQ}: int8 "
+        f"{', '.join(f'{r:.1f}' for r in rates['int8'])} chunks/s, bf16 "
+        f"{', '.join(f'{r:.1f}' for r in rates['bfloat16'])} chunks/s; int8 vs bf16 "
+        f"cosine min {cos.min():.5f} over {len(texts)} texts ({card})")
+    if not cos.min() >= EMBED_INT8_COS:
+        raise AssertionError(f"int8 embeddings: cosine to bf16 {cos.min()}")
+    return {"int8_chunks_per_s": rates["int8"], "bf16_chunks_per_s": rates["bfloat16"],
+            "min_cosine_to_bf16": float(cos.min()), "card": card}
+
+
+def write_whisper_checkpoint(cache: str, variant: str, seed: int, dev) -> int:
+    """A seeded full-width tree (random init on the card) saved in bf16 as
+    `whisper-{variant}.pt`, OpenAI's names. Returns its bytes."""
+    import torch
+
+    from eioku_tpu_torch.models.whisper.model import WhisperConfig, init_whisper
+
+    model = init_whisper(WhisperConfig(variant), torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    sd = {k: v.to("cpu", torch.bfloat16) for k, v in model.state_dict().items()}
+    del model
+    path = os.path.join(cache, f"whisper-{variant}.pt")
+    torch.save(sd, path)
+    return os.path.getsize(path)
+
+
+def write_tokenizer_files(cache: str) -> None:
+    """A vocab.json of word-start pieces (each id decodes to " w<id>") and a
+    merges.txt, so that decoded ids become words."""
+    with open(os.path.join(cache, "vocab.json"), "w") as f:
+        json.dump({f"Ġw{i}": i for i in range(50257)}, f)
+    with open(os.path.join(cache, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\nĠ w\n")
+
+
+def phase_whisper_options(dev, wav: str, workdir: str, card: str) -> dict:
+    """8.2 word timestamps, the conditioned decode and speculative decoding
+    at full width, through run_task on seeded bf16 checkpoints (written and
+    deleted here, timed apart): turbo (int8 by default) for the first two,
+    large-v3 drafted by turbo for the third."""
+    import shutil
+
+    import torch
+
+    from eioku_tpu_torch.ml import transcribe
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.models.whisper.model import WhisperConfig
+    from eioku_tpu_torch.ops import _cuda
+
+    cache = os.path.join(workdir, "whisper_ckpt")
+    os.makedirs(cache)
+    t = time.perf_counter()
+    sizes = {v: write_whisper_checkpoint(cache, v, seed, dev)
+             for v, seed in (("large-v3-turbo", 1), ("large-v3", 2))}
+    write_tokenizer_files(cache)
+    write_s = time.perf_counter() - t
+    log(f"whisper checkpoints written in {write_s:.2f} s: "
+        f"{ {v: round(b / 2**20, 1) for v, b in sizes.items()} } MiB")
+    engine = InferenceEngine(model_cache_dir=cache, device=dev)
+    out = {"checkpoint_write_s": write_s, "checkpoint_mib": {v: b / 2**20 for v, b
+                                                              in sizes.items()}}
+    try:
+        transcribe._load_model.cache_clear()
+        turbo = {"model": "large-v3-turbo", **OPTION_CONFIG}
+        _, load_s, _ = _peak_run(engine.run_task, "transcription", wav, turbo)
+        out["turbo_first_call_s"] = load_s
+        rows, wall, peak = _peak_run(engine.run_task, "transcription", wav,
+                                     {**turbo, "word_timestamps": True})
+        words = [len(r["payload"]["words"]) for r in rows]
+        if not rows or not sum(words) or any(
+                w["end_ms"] < w["start_ms"] for r in rows for w in r["payload"]["words"]):
+            raise AssertionError(f"word_timestamps: {len(rows)} rows, words {words}")
+        out["word_timestamps"] = {"wall_s": wall, "rows": len(rows), "peak_mib": peak,
+                                  "words_per_row": sum(words) / len(rows)}
+        log(f"word_timestamps (turbo int8): {wall:.3f} s wall, {len(rows)} rows, "
+            f"{sum(words) / len(rows):.2f} words per row, peak {peak:.1f} MiB ({card})")
+        with _counting(transcribe, "whisper_encode") as enc:
+            rows, wall, peak = _peak_run(engine.run_task, "transcription", wav,
+                                         {**turbo, "condition_on_previous_text": True})
+        if not rows or len(enc) != 4:
+            raise AssertionError(f"conditioned: {len(rows)} rows, {len(enc)} windows")
+        out["condition_on_previous_text"] = {"wall_s": wall, "rows": len(rows),
+                                             "serial_windows": len(enc), "peak_mib": peak}
+        log(f"condition_on_previous_text (turbo int8): {wall:.3f} s wall, {len(enc)} "
+            f"windows decoded serially, {len(rows)} rows ({card})")
+
+        transcribe._load_model.cache_clear()
+        torch.cuda.empty_cache()
+        spec = {"model": "large-v3", "draft_model": "large-v3-turbo", "beam_size": 1,
+                "timestamps": False, "compute_dtype": "bfloat16", **OPTION_CONFIG}
+        engine.run_task("transcription", wav, spec)  # loads target and draft
+        with _counting(transcribe, "speculative_greedy_decode",
+                       lambda out: out[1]) as rates:
+            _cuda.reset_launch_counts()
+            rows, wall, peak = _peak_run(engine.run_task, "transcription", wav, spec)
+            k3 = _cuda.launch_counts()["flash_attention"]
+        two_encoders = sum(WhisperConfig(v).n_enc_layers for v in ("large-v3",
+                                                                     "large-v3-turbo"))
+        if len(rates) != 1 or k3 != two_encoders or not 0.0 <= rates[0] <= 1.0:
+            raise AssertionError(f"speculative: {len(rates)} decodes, K3 {k3} "
+                                 f"({two_encoders} per batch: two encoders), "
+                                 f"rates {rates}")
+        out["draft_model"] = {"wall_s": wall, "rows": len(rows), "accept_rate": rates[0],
+                              "k3_launches": k3, "peak_mib": peak}
+        log(f"draft_model (large-v3 bf16, drafted by turbo bf16, gamma 4): {wall:.3f} s "
+            f"wall, accept_rate {rates[0]:.4f}, K3 {k3} launches, {len(rows)} rows, "
+            f"peak {peak:.1f} MiB ({card})")
+    finally:
+        transcribe._load_model.cache_clear()
+        shutil.rmtree(cache)
+        torch.cuda.empty_cache()
+    out["card"] = card
+    return out
+
+
+def phase_vad(dev, wav: str, workdir: str, card: str) -> dict:
+    """8.3 a seeded Silero-v5-width VAD (its head scaled and shifted, VAD_HEAD,
+    so it passes the loader's behavioural check) exported with the port's
+    exporter: vad_probs card vs CPU at fp32 within VAD_TOL at the model's
+    init and within VAD_TOL times the head's scale through the checkpoint
+    (the scale multiplies the LSTM output's rounding); the activity of
+    split_windows on the wav through silero_vad.ckpt equal card vs CPU
+    wherever the probabilities keep more than VAD_MARGIN from 0.5."""
+    import torch
+
+    from eioku_tpu_torch.ml import audio_io
+    from eioku_tpu_torch.models.vad import model as vad
+    from eioku_tpu_torch.models.vad import weights
+
+    model = vad.init_vad(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.decoder.decoder[2].weight.mul_(VAD_HEAD[0])
+        model.decoder.decoder[2].bias.fill_(VAD_HEAD[1])
+    cache = os.path.join(workdir, "vad")
+    os.makedirs(cache)
+    torch.save(weights.export_silero_state_dict(model), os.path.join(cache, "silero_vad.ckpt"))
+    audio = audio_io.load_wav(wav)
+    padded = np.zeros(-(-len(audio) // (30 * 16000)) * 30 * 16000, np.float32)
+    padded[:len(audio)] = audio
+    x = torch.from_numpy(padded)[None]
+    torch.backends.cudnn.allow_tf32 = False  # fp32 comparison: no TF32 LSTM or matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # the network at its own init, then the checkpoint whose head
+        # multiplies the LSTM's output, and so its rounding, by VAD_HEAD[0]
+        raw = vad.init_vad(torch.Generator().manual_seed(0))
+        raw_err = float(np.abs(vad.vad_probs(raw.to(dev), x.to(dev))[0].cpu().numpy()
+                               - vad.vad_probs(raw.cpu(), x)[0].numpy()).max())
+        card_model = weights.load_vad(cache, dev)
+        cpu_model = weights.load_vad(cache, torch.device("cpu"))
+        if card_model is None or cpu_model is None:
+            raise AssertionError("the VAD checkpoint failed the loader's check")
+        want = vad.vad_probs(cpu_model, x)[0].numpy()
+        got = vad.vad_probs(card_model, x.to(dev))[0].cpu().numpy()
+        err = float(np.abs(got - want).max())
+        if not raw_err <= VAD_TOL or not err <= VAD_TOL * abs(VAD_HEAD[0]):
+            raise AssertionError(f"vad_probs card vs CPU: {raw_err} at init, {err} "
+                                 f"with the scaled head")
+        _, probs_s, _ = _peak_run(lambda: vad.vad_probs(card_model, x.to(dev)).cpu())
+        windows, split_s, _ = _peak_run(audio_io.split_windows, audio, 16000, 30.0, True,
+                                        cache, dev)
+        act = audio_io.compute_vad(audio, model_cache_dir=cache, device=dev)
+        act_cpu = audio_io.compute_vad(audio, model_cache_dir=cache, device="cpu")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    frame = 16000 * audio_io.VAD_FRAME_MS // 1000
+    chunk_of = np.minimum(np.arange(len(act)) * frame // 512, len(want) - 1)
+    clear = np.abs(want[chunk_of] - 0.5) > VAD_MARGIN
+    if not np.array_equal(act[clear], act_cpu[clear]):
+        raise AssertionError("model VAD activity differs card vs CPU away from 0.5")
+    energy = audio_io.split_windows(audio)
+    log(f"VAD: vad_probs card vs CPU max abs err {raw_err:.2e} at init, {err:.2e} "
+        f"with the head scaled by {VAD_HEAD[0]:g}, over {len(want)} chunks "
+        f"({probs_s * 1e3:.2f} ms on the card for {len(padded) / 16000:.0f} s); "
+        f"split_windows through the model VAD {split_s:.3f} s: windows at "
+        f"{[s for s, _ in windows]} ms (energy VAD: {[s for s, _ in energy]}); "
+        f"{int(act.sum())} of {len(act)} frames active, {int((~clear).sum())} frames "
+        f"within {VAD_MARGIN} of 0.5 ({card})")
+    return {"max_abs_err_init": raw_err, "max_abs_err": err, "probs_ms": probs_s * 1e3, "split_windows_s": split_s,
+            "windows": [s for s, _ in windows], "active_frames": int(act.sum()),
+            "frames": len(act), "card": card}
+
+
+def phase_diarization(dev, wav: str, card: str) -> dict:
+    """8.4 ECAPA-TDNN at full published width (random, seed 0): fp32 card
+    (TF32 off) vs CPU within MODEL_TOL of the largest |value|, bf16 on the
+    card at cosine >= ECAPA_COS to fp32; then run_task("speaker_diarization")
+    on the wav after a warm-up: windows, windows/s, turns, wall, peak."""
+    import torch
+
+    from eioku_tpu_torch.ml import audio_io, diarize
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.models.speaker.model import EcapaConfig, ecapa_embed, init_ecapa
+
+    windows = diarize.slice_windows(audio_io.load_wav(wav))[:ECAPA_WINDOWS]
+    x = torch.from_numpy(np.stack([w for _, w in windows]))
+    model = init_ecapa(EcapaConfig(), torch.Generator().manual_seed(0))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ecapa_embed(model, x)
+        card_model = model.to(dev)
+        got = ecapa_embed(card_model, x.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    err = float((got - want).abs().max())
+    if not err <= MODEL_TOL * max(float(want.abs().max()), 1.0):
+        raise AssertionError(f"ECAPA fp32 card vs CPU: {err}")
+    card_model.cfg = EcapaConfig(compute_dtype="bfloat16")
+    bf16 = ecapa_embed(card_model, x.to(dev)).cpu()
+    cos = float((bf16 * want).sum(dim=1).min())
+    if not cos >= ECAPA_COS:
+        raise AssertionError(f"ECAPA bf16 cosine to fp32 {cos}")
+    engine = InferenceEngine(device=dev)
+    engine.run_task("speaker_diarization", wav, {})  # warm-up: the model, cuDNN
+    with _counting(diarize, "embed_windows", len) as embedded:
+        rows, wall, peak = _peak_run(engine.run_task, "speaker_diarization", wav, {})
+    n = embedded[0]
+    if not rows or not all(r["span_end_ms"] > r["span_start_ms"] for r in rows):
+        raise AssertionError(f"diarization: {len(rows)} turns")
+    log(f"ECAPA fp32 card vs CPU max abs err {err:.2e}; bf16 vs fp32 cosine min "
+        f"{cos:.5f}; speaker_diarization (bf16): {n} windows in {wall:.3f} s "
+        f"({n / wall:.1f} windows/s), {len(rows)} turns, "
+        f"{len({r['payload']['label'] for r in rows})} speakers, peak {peak:.1f} MiB ({card})")
+    return {"ecapa_max_abs_err": err, "ecapa_bf16_min_cos": cos, "windows": n,
+            "wall_s": wall, "windows_per_s": n / wall, "turns": len(rows),
+            "peak_mib": peak, "card": card}
+
+
+def phase_audio(dev, wav: str, workdir: str, card: str) -> dict:
+    """Phase 8: the audio slice (int8, the Whisper options, the model VAD,
+    diarization) on the card."""
+    return {"int8_linears": phase_int8_linears(dev, card),
+            "int8_transcription": phase_int8_transcription(dev, wav, card),
+            "int8_embed": phase_embed_int8(dev, workdir, card),
+            "whisper_options": phase_whisper_options(dev, wav, workdir, card),
+            "vad": phase_vad(dev, wav, workdir, card),
+            "diarization": phase_diarization(dev, wav, card)}
+
+
 def main() -> int:
     import torch
 
@@ -2118,6 +2637,7 @@ def main() -> int:
         sem = timed("5 semantic", phase_semantic, dev, workdir, card)
         ocr = timed("6 OCR", phase_ocr, dev, workdir, card)
         clip = timed("7 CLIP", phase_clip, dev, workdir, card)
+        audio = timed("8 audio", phase_audio, dev, wav, workdir, card)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
@@ -2139,7 +2659,11 @@ def main() -> int:
          "launches_through_worker": wk["transcription_launches"]["flash_attention"],
          "launches_per_minilm_call_s512": sem["models"]["s512"]["k3_launches_bfloat16"],
          "launches_on_indexing_path": sem["index"]["k3_launches_indexing"],
-         "minilm_s512_ms_per_call": sem["models"]["s512_bf16_ms_per_call"], **k3},
+         "minilm_s512_ms_per_call": sem["models"]["s512_bf16_ms_per_call"],
+         "launches_turbo_int8": audio["int8_transcription"]["int8"]["k3_launches"],
+         "launches_turbo_bf16": audio["int8_transcription"]["bfloat16"]["k3_launches"],
+         "launches_speculative_batch": audio["whisper_options"]["draft_model"]["k3_launches"],
+         **k3},
     ]
     print(json.dumps({"slice": {k: v for k, v in sl.items()
                                 if k not in ("launches", "k2_faces", "k2_objects",
@@ -2149,6 +2673,7 @@ def main() -> int:
     print(json.dumps({"worker": wk}))
     print(json.dumps({"semantic": sem}))
     print(json.dumps({"ocr": ocr, "clip": clip}))
+    print(json.dumps({"audio": audio}))
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,8 +17,9 @@ when the model is first needed, so a host without a card can build the
 index and fails only when it embeds). On the card MiniLM runs bf16
 activations, the JAX indexing path's type; on the CPU it runs fp32, the
 port's rule for CPU parity (utils/device.compute_dtype). The int8 embedder
-(`embed_int8`, EIOKU_EMBED_INT8=1) needs ops/quant.py, which is not ported:
-it raises ModelNotAvailable. The artifacts' producer is
+(`embed_int8`, or EIOKU_EMBED_INT8=1) quantizes MiniLM's encoder layers
+(ops/quant.py), as the JAX package quantizes its `layers`; the embeddings
+and their layer norm stay float. The artifacts' producer is
 `eioku-tpu-torch-semantic`.
 """
 from __future__ import annotations
@@ -35,9 +36,9 @@ import torch
 
 from eioku_tpu_torch.domain.artifacts import SelectionPolicy, utcnow
 from eioku_tpu_torch.index.ivf import top_k as _top_k
-from eioku_tpu_torch.ml.engine import ModelNotAvailable
 from eioku_tpu_torch.models.embed.minilm import MiniLMConfig, load_minilm, minilm_embed
 from eioku_tpu_torch.models.embed.tokenizer import WordPieceTokenizer
+from eioku_tpu_torch.models.layers import quantize_linears
 from eioku_tpu_torch.utils import progress
 from eioku_tpu_torch.utils.device import compute_dtype_name, resolve_device
 from eioku_tpu_torch.utils.hashing import compute_config_hash
@@ -141,15 +142,15 @@ class SemanticIndex:
 
     def _ensure_model(self):
         if self._model is None:
-            if (getattr(self.ctx.config, "embed_int8", False)
-                    or os.environ.get("EIOKU_EMBED_INT8") == "1"):
-                raise ModelNotAvailable("the int8 embedder (embed_int8) needs "
-                                        "ops/quant.py, which is not ported")
             dev = resolve_device(self.device)  # None is CUDA: raises without a card
             cache = self.ctx.config.model_cache_dir
             model, cfg, self.pretrained = load_minilm(cache, device=dev)
             # the indexing path's activations: bf16 on the card, fp32 on the CPU
             model.cfg = self._cfg = replace(cfg, compute_dtype=compute_dtype_name(dev))
+            if (getattr(self.ctx.config, "embed_int8", False)
+                    or os.environ.get("EIOKU_EMBED_INT8") == "1"):
+                quantize_linears(model.encoder)
+                log.info("int8-quantized embedder enabled")
             self._dev = dev
             self._tokenizer = WordPieceTokenizer.from_cache_dir(cache, max_len=256)
             self._model = model

@@ -8,10 +8,8 @@ stdlib (resampled to 16 kHz) and .mp3/.ogg/.flac through SDL_mixer (pygame)
 with SDL's dummy audio output. For a video path a sidecar audio file with the
 same basename is used when present; otherwise the task reports no audio.
 
-Voice activity: the energy VAD. Where the JAX package would run its model VAD
-(a Silero checkpoint under the model cache), `compute_vad` raises
-ModelNotAvailable until models/vad is ported, instead of silently gating
-with the energy VAD.
+Voice activity: the model VAD (models/vad) when a Silero checkpoint under
+the model cache loads, as in the JAX package; the energy VAD otherwise.
 """
 from __future__ import annotations
 
@@ -20,12 +18,15 @@ import os
 import wave
 
 import numpy as np
+import torch
+
+from eioku_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
 
 SAMPLE_RATE = 16000
 AUDIO_EXTENSIONS = (".wav", ".mp3", ".ogg", ".flac", ".m4a", ".aac")
-VAD_CHECKPOINT_NAME = "silero_vad.ckpt"  # eioku_tpu/models/vad/weights.py
+VAD_CHECKPOINT_NAME = "silero_vad.ckpt"  # models/vad/weights.py
 
 
 def load_wav(path: str, target_sr: int = SAMPLE_RATE) -> np.ndarray:
@@ -230,31 +231,38 @@ def energy_vad(audio: np.ndarray, sr: int = SAMPLE_RATE,
 
 
 def compute_vad(audio: np.ndarray, sr: int = SAMPLE_RATE,
-                model_cache_dir: str | None = None) -> np.ndarray:
-    """Boolean voice activity per VAD_FRAME_MS frame (the energy VAD).
+                model_cache_dir: str | None = None,
+                device: str | torch.device | None = None) -> np.ndarray:
+    """Boolean voice activity per VAD_FRAME_MS frame.
 
-    Raises ModelNotAvailable where the JAX package would try its model VAD:
-    a Silero checkpoint under model_cache_dir at 16 kHz."""
+    The model VAD (models/vad, on `device`: None is CUDA) when a Silero
+    checkpoint under model_cache_dir loads and passes its sanity check and
+    the audio is at its 16 kHz; the energy VAD otherwise (random VAD weights
+    would gate speech arbitrarily)."""
+    # without a checkpoint no device is resolved: the energy VAD needs none
     if model_cache_dir and sr == SAMPLE_RATE and os.path.isfile(
             os.path.join(model_cache_dir, VAD_CHECKPOINT_NAME)):
-        from eioku_tpu_torch.ml.engine import ModelNotAvailable
+        from eioku_tpu_torch.models.vad.model import vad_activity
+        from eioku_tpu_torch.models.vad.weights import load_vad
 
-        raise ModelNotAvailable(
-            f"model VAD ({VAD_CHECKPOINT_NAME} in the model cache) is not "
-            "ported to eioku_tpu_torch yet")
+        model = load_vad(model_cache_dir, resolve_device(device))
+        if model is not None:
+            return vad_activity(model, audio, frame_ms=VAD_FRAME_MS)
     return energy_vad(audio, sr)
 
 
 def split_windows(audio: np.ndarray, sr: int = SAMPLE_RATE,
                   window_s: float = 30.0, vad: bool = True,
-                  model_cache_dir: str | None = None
+                  model_cache_dir: str | None = None,
+                  device: str | torch.device | None = None
                   ) -> list[tuple[int, np.ndarray]]:
     """Split audio into fixed windows of window_s seconds (zero-padded last).
-    Returns [(start_ms, samples[window])], silent windows dropped when vad."""
+    Returns [(start_ms, samples[window])], silent windows dropped when vad
+    (the model VAD runs on `device`)."""
     win = int(sr * window_s)
     out: list[tuple[int, np.ndarray]] = []
-    activity = compute_vad(audio, sr, model_cache_dir) if vad and len(audio) \
-        else None
+    activity = compute_vad(audio, sr, model_cache_dir, device) \
+        if vad and len(audio) else None
     for start in range(0, max(len(audio), 1), win):
         chunk = audio[start:start + win]
         if len(chunk) == 0:

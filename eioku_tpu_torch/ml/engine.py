@@ -4,10 +4,10 @@
 Same dispatch keys as the JAX engine. The port implements
 scene_detection, metadata_extraction (host-only container parsing),
 object_detection, face_detection, place_classification, ocr,
-visual_analysis (scenes, objects, faces, places, OCR) and transcription.
-speaker_diarization raises ModelNotAvailable, which the task handler records
-as a clean task failure; so does semantic_indexing, which the task handler
-runs on its index without the engine, as in the JAX package.
+visual_analysis (scenes, objects, faces, places, OCR), transcription and
+speaker_diarization. semantic_indexing raises ModelNotAvailable, which the
+task handler records as a clean task failure: the handler runs it on its
+index without the engine, as in the JAX package.
 
 Results are lists of {"payload": dict, "span_start_ms": int,
 "span_end_ms": int}; visual_analysis returns {sub_task_type: results}.
@@ -67,6 +67,7 @@ class InferenceEngine:
             "visual_analysis": self._visual_analysis,
             "transcription": self._transcription,
             "ocr": self._ocr,
+            "speaker_diarization": self._speaker_diarization,
         }
         self._dispatch: dict[str, Callable[[str, dict], Any]] = {
             t: ported.get(t, self._not_ported(t)) for t in _TASK_TYPES}
@@ -142,3 +143,9 @@ class InferenceEngine:
         from eioku_tpu_torch.ml.ocr_task import run_ocr
         return run_ocr(video_path, config, model_cache_dir=self.model_cache_dir,
                        device=self.device)
+
+    def _speaker_diarization(self, video_path: str, config: dict) -> list[dict]:
+        from eioku_tpu_torch.ml.diarize import run_diarization
+        return run_diarization(video_path, config,
+                               model_cache_dir=self.model_cache_dir,
+                               device=self.device)

@@ -19,7 +19,9 @@ Transformers (Whisper, MiniLM, CLIP): `layer_norm`, `Linear`, `gelu` (tanh
 form, Whisper), `gelu_erf` (exact form, MiniLM), `quick_gelu` (CLIP) and
 `mha` round where the JAX package's `layernorm`, `linear`, `jax.nn.gelu` and
 `mha` round, so a bf16 model computes what the JAX package's bf16 model
-computes.
+computes. `quantize_linears` swaps every linear of a module for a
+`QuantLinear` (int8 weights, ops/quant.py), as the JAX package's
+`quantize_linears` rewrites every linear of a parameter tree.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from eioku_tpu_torch.ops.quant import linear_q, quantize_weight
 
 BN_EPS = 1e-3
 RESNET_BN_EPS = 1e-5
@@ -248,6 +252,42 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.linear(x, self.weight.to(x.dtype))
         return out if self.bias is None else out + self.bias.to(x.dtype)
+
+
+class QuantLinear(nn.Module):
+    """An int8 linear (buffers `w_q` int8 [out, in], `w_s` fp32 [out] and the
+    float `bias`), computed by ops/quant.py's `linear_q`: the JAX package's
+    `linear` on a quantized parameter dict."""
+
+    def __init__(self, w_q: torch.Tensor, w_s: torch.Tensor,
+                 bias: torch.Tensor | None):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_s", w_s)
+        self.register_buffer("bias", bias)
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> QuantLinear:
+        w_q, w_s = quantize_weight(lin.weight)
+        dev = lin.weight.device
+        bias = None if lin.bias is None else lin.bias.detach().clone()
+        return cls(torch.from_numpy(w_q).to(dev), torch.from_numpy(w_s).to(dev), bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_q(x, self.w_q, self.w_s, self.bias)
+
+
+@torch.no_grad()
+def quantize_linears(module: nn.Module) -> nn.Module:
+    """Replace every nn.Linear under `module` (in place) by its QuantLinear.
+    Embeddings, layer norms and convolutions stay as they are. Returns
+    `module`."""
+    for name, child in module.named_children():
+        if isinstance(child, nn.Linear):
+            setattr(module, name, QuantLinear.from_linear(child))
+        else:
+            quantize_linears(child)
+    return module
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -13,9 +13,11 @@ one (weights.py). Layouts at the public functions are the JAX package's: mel
 
 The encoder's self-attention goes through ops/flash_attention.py (the
 hand-written kernel K3 on the card, its plain version on the CPU). Decoder
-attention is plain torch, as the JAX package leaves it outside any kernel.
-`decoder_step` writes the new key/value into the caches IN PLACE (the JAX
-version returns updated copies).
+attention is plain torch, as the JAX package leaves it outside any kernel;
+so is `cross_attention_alignment`, whose cross-attention weights are its
+output (word timestamps). `decoder_step` writes the new key/value into the
+caches IN PLACE (the JAX version returns updated copies). Any linear may be
+a `QuantLinear` (int8, `layers.quantize_linears`).
 """
 from __future__ import annotations
 
@@ -275,23 +277,89 @@ def _logits(model: Whisper, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ model.decoder.token_embedding.weight.float().T
 
 
+def _embed_tokens(model: Whisper, tokens: torch.Tensor) -> torch.Tensor:
+    dec = model.decoder
+    return (dec.token_embedding.weight[tokens]
+            + dec.positional_embedding[:tokens.shape[1]][None]).to(model.cfg.dtype)
+
+
+def _causal(s: int, device) -> torch.Tensor:
+    return torch.ones((s, s), dtype=torch.bool, device=device).tril()[None, None]
+
+
 @torch.no_grad()
 def whisper_decode_full(model: Whisper, tokens: torch.Tensor,
-                        enc_out: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, vocab] fp32 (full recompute, causal)."""
+                        enc_out: torch.Tensor, cross_kv=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] fp32 (full recompute, causal).
+    cross_kv: `precompute_cross_kv(model, enc_out)`, to reuse across calls
+    on one encoder output (the projections are then not recomputed)."""
     cfg, dec = model.cfg, model.decoder
-    s = tokens.shape[1]
-    x = (dec.token_embedding.weight[tokens] + dec.positional_embedding[:s][None]
-         ).to(cfg.dtype)
-    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()[None, None]
-    for block in dec.blocks:
+    x = _embed_tokens(model, tokens)
+    causal = _causal(tokens.shape[1], x.device)
+    for li, block in enumerate(dec.blocks):
         x = x + _self_attn(block.attn_ln(x), block.attn, cfg.n_heads, mask=causal)
         h = block.cross_attn_ln(x)
         ca = block.cross_attn
-        x = x + ca.out(_attend(ca.query(h), ca.key(enc_out), ca.value(enc_out),
-                               cfg.n_heads))
+        if cross_kv is None:
+            k, v = ca.key(enc_out), ca.value(enc_out)
+        else:
+            k, v = cross_kv[0][li], cross_kv[1][li]
+        x = x + ca.out(_attend(ca.query(h), k, v, cfg.n_heads))
         x = x + _mlp(block.mlp_ln(x), block)
     return _logits(model, dec.ln(x))
+
+
+@torch.no_grad()
+def cross_attention_alignment(model: Whisper, tokens: torch.Tensor,
+                              enc_out: torch.Tensor,
+                              frame_counts: torch.Tensor | None = None,
+                              layers_from: int | None = None) -> torch.Tensor:
+    """Teacher-forced decoder pass returning text->audio alignment energy
+    (the JAX package's `cross_attention_alignment`).
+
+    Collects the cross-attention softmax of the decoder layers from
+    `layers_from` (default: the upper half) on, z-normalised per head over
+    each window's valid frames (`frame_counts` [B]; the others are masked
+    with -1e30 and left out of the statistics) and averaged over the heads.
+    The decoder's own attention still sees every frame, as it did while
+    decoding. Plain attention: its weights are the output.
+
+    tokens [B, S]; enc_out [B, 1500, d] -> [B, S, 1500] fp32."""
+    cfg, dec = model.cfg, model.decoder
+    b, s = tokens.shape
+    n_frames = enc_out.shape[1]
+    start = cfg.n_dec_layers // 2 if layers_from is None else layers_from
+    dev = enc_out.device
+    if frame_counts is None:
+        frame_counts = torch.full((b,), n_frames, dtype=torch.int32, device=dev)
+    frame_counts = frame_counts.to(dev)
+    vmask = (torch.arange(n_frames, device=dev)[None] < frame_counts[:, None]
+             )[:, None, None, :]  # [B, 1, 1, F]
+    cnt = frame_counts.clamp_min(1).float()[:, None, None, None]
+    x = _embed_tokens(model, tokens)
+    causal = _causal(s, dev)
+    acc = torch.zeros((b, s, n_frames), dtype=torch.float32, device=dev)
+    n_sel = 0
+    scale = (cfg.dim // cfg.n_heads) ** -0.25
+    for li, block in enumerate(dec.blocks):
+        x = x + _self_attn(block.attn_ln(x), block.attn, cfg.n_heads, mask=causal)
+        h = block.cross_attn_ln(x)
+        ca = block.cross_attn
+        qh = split_heads(ca.query(h), cfg.n_heads) * scale
+        kh = split_heads(ca.key(enc_out), cfg.n_heads) * scale
+        vh = split_heads(ca.value(enc_out), cfg.n_heads)
+        scores = qh.float() @ kh.float().transpose(-1, -2)  # [B, H, S, F]
+        if li >= start:
+            wa = torch.softmax(scores.masked_fill(~vmask, _NEG_ATTN), dim=-1)
+            mu = (wa * vmask).sum(dim=-1, keepdim=True) / cnt
+            sd = torch.sqrt(torch.where(vmask, (wa - mu) ** 2, 0.0).sum(
+                dim=-1, keepdim=True) / cnt) + 1e-9
+            acc = acc + torch.where(vmask, (wa - mu) / sd, 0.0).sum(dim=1)
+            n_sel += cfg.n_heads
+        w = torch.softmax(scores, dim=-1).to(vh.dtype)
+        x = x + ca.out(merge_heads(w @ vh))
+        x = x + _mlp(block.mlp_ln(x), block)
+    return acc / max(n_sel, 1)
 
 
 @torch.no_grad()

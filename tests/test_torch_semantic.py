@@ -29,6 +29,7 @@ from eioku_tpu.index.rerank import Reranker as JaxReranker
 from eioku_tpu.models.checkpoint import save_params
 from eioku_tpu.models.embed import cross_encoder as jce
 from eioku_tpu.models.embed import minilm as jml
+from eioku_tpu.ops import quant as jquant
 from eioku_tpu_torch.api.app import build_context
 from eioku_tpu_torch.config.settings import AppConfig
 from eioku_tpu_torch.db.connection import Database
@@ -37,8 +38,8 @@ from eioku_tpu_torch.domain.models import Video
 from eioku_tpu_torch.index import ivf as pivf
 from eioku_tpu_torch.index import semantic as psem
 from eioku_tpu_torch.index.rerank import Reranker
-from eioku_tpu_torch.ml.engine import ModelNotAvailable
 from eioku_tpu_torch.models.embed import cross_encoder as pce
+from eioku_tpu_torch.models.layers import QuantLinear
 
 # JAX bf16 trunk against the port's fp32 one: the score of a hit may move
 # by this much (worst seen when this test was written: 1.46e-3)
@@ -413,14 +414,32 @@ def test_search_escalates_past_stale_slots(tmp_path):
 
 
 @pytest.mark.parametrize("how", ["config", "env"])
-def test_int8_embedder_is_refused(tmp_path, monkeypatch, how):
-    ctx = _context(PORT, tmp_path, tmp_path)
+def test_int8_embedder_matches_jax(tmp_path, monkeypatch, how):
+    """embed_int8 (or EIOKU_EMBED_INT8=1) quantizes MiniLM's encoder layers,
+    as the JAX package quantizes its `layers`. The JAX reference is its int8
+    MiniLM at fp32 activations (hazard k) on the same ids: within 2e-3, the
+    effect of an activation rounding one int8 step apart where the two
+    packages' fp32 inputs straddle a .5 boundary (hazard r)."""
+    cache = tmp_path / "models"
+    (cache / "minilm-l6").mkdir(parents=True)
+    _write_minilm(cache)
+    ctx = _context(PORT, tmp_path, cache)
     if how == "config":
         ctx.config.embed_int8 = True
     else:
         monkeypatch.setenv("EIOKU_EMBED_INT8", "1")
-    with pytest.raises(ModelNotAvailable, match="int8"):
-        psem.SemanticIndex(ctx, device="cpu").embed_texts(["hello"])
+    index = psem.SemanticIndex(ctx, batch_size=4, device="cpu")
+    texts = _segment_texts()[:4]
+    got = index.embed_texts(texts)
+    assert isinstance(index._model.encoder.layer[0].attention.self.query, QuantLinear)
+    params, cfg, pretrained = jml.load_minilm(str(cache))
+    assert pretrained
+    qparams = {k: jquant.quantize_linears(v) if k == "layers" else v
+               for k, v in params.items()}
+    ids, mask = index._tokenizer.encode_batch(texts)
+    want = np.asarray(jml.minilm_embed(qparams, ids, mask, cfg))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+    assert (np.sum(got * want, axis=1) > 0.9999).all()
 
 
 def test_index_without_a_device_raises_on_a_cpu_host(tmp_path, monkeypatch):

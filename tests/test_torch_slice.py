@@ -436,15 +436,14 @@ def test_fused_faces_match_separate_consumer(tmp_path, visual_cache_dir):
 
 
 # options of a task the port runs, still refused
-_STILL_REFUSED = {"transcription": {"compute_dtype": "int8"},
+_STILL_REFUSED = {"transcription": {"tensor_parallel": 2},
                   "face_detection": {"int8": True},
                   "object_detection": {"preprocess": "device"}}
 
 
 @pytest.mark.parametrize("task_type", [
     "face_detection", "transcription",
-    "object_detection", "semantic_indexing", "speaker_diarization",
-    "no_such_task"])
+    "object_detection", "semantic_indexing", "no_such_task"])
 def test_unported_tasks_raise(task_type, scene_video):
     with pytest.raises(ModelNotAvailable):
         InferenceEngine(device="cpu").run_task(

@@ -13,6 +13,7 @@ import wave
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -24,8 +25,18 @@ from eioku_tpu_torch.ml import audio_io, transcribe
 from eioku_tpu_torch.ml.engine import InferenceEngine, ModelNotAvailable
 from eioku_tpu_torch.models.whisper.model import WhisperConfig
 from eioku_tpu_torch.models.whisper.weights import from_jax_params
+from test_torch_ocr import single_torch_thread
 
 SR = 16000
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: under the suite's parallel workers the
+    per-step parallel regions of small ops (decode steps, the VAD's LSTM)
+    wait on descheduled threads."""
+    with single_torch_thread():
+        yield
 
 
 def _write_wav(path, x, sr=SR, channels=1):
@@ -133,9 +144,6 @@ def test_no_audio_gives_no_rows(tmp_path):
 
 
 @pytest.mark.parametrize("config,needle", [
-    ({"compute_dtype": "int8"}, "int8"),
-    ({"compute_dtype": "int8_bfloat16"}, "int8"),
-    ({"model": "large-v3-turbo"}, "int8"),  # the turbo variant's default
     ({"compute_dtype": "float16"}, "float16"),
     ({"tensor_parallel": 2}, "tensor_parallel"),
 ])
@@ -145,29 +153,34 @@ def test_unported_options_raise(audio_dir, config, needle):
                                      device="cpu")
 
 
-@pytest.mark.parametrize("config,needle", [
-    ({"draft_model": "tiny"}, "draft_model"),
-    ({"condition_on_previous_text": True}, "condition_on_previous_text"),
-    ({"word_timestamps": True}, "word_timestamps"),
-])
-def test_unported_options_raise_where_they_take_effect(audio_dir, pretrained,
-                                                       config, needle):
+def test_model_vad_checkpoint_runs_as_jax(audio_dir, pretrained, tmp_path):
+    """A Silero checkpoint in the cache gates the windows through the model
+    VAD in both packages (tests/test_torch_vad.py holds the VAD itself; its
+    shifted head passes the loaders' behavioural check)."""
+    import test_torch_vad
+
+    from eioku_tpu.models.vad.weights import export_silero_state_dict
+
+    torch.save(export_silero_state_dict(test_torch_vad._shifted()),
+               tmp_path / "silero_vad.ckpt")
+    (tmp_path / "vocab.json").write_text((audio_dir / "vocab.json").read_text())
     cfg = {"model": "tiny", "compute_dtype": "float32", "language": "en",
-           **config}
-    with pytest.raises(ModelNotAvailable, match=needle):
-        transcribe.run_transcription(str(audio_dir / "clip.wav"), cfg,
-                                     model_cache_dir=str(audio_dir), device="cpu")
-
-
-def test_model_vad_checkpoint_is_refused(audio_dir, tmp_path):
-    (tmp_path / "silero_vad.ckpt").write_bytes(b"")
-    with pytest.raises(ModelNotAvailable, match="VAD"):
-        transcribe.run_transcription(
-            str(audio_dir / "clip.wav"), {"model": "tiny",
-                                          "compute_dtype": "float32"},
-            model_cache_dir=str(tmp_path), device="cpu")
+           "temperatures": [], "no_speech_threshold": 2.0, "max_tokens": 10,
+           "batch_size": 2, "beam_size": 2}
+    wav, cache = str(audio_dir / "clip.wav"), str(tmp_path)
+    x = audio_io.load_wav(wav)
+    model_vad = audio_io.compute_vad(x, model_cache_dir=cache, device="cpu")
+    np.testing.assert_array_equal(model_vad,
+                                  jax_audio_io.compute_vad(x, model_cache_dir=cache))
+    assert not np.array_equal(model_vad, audio_io.energy_vad(x))
+    want = jax_transcribe.run_transcription(wav, cfg, model_cache_dir=cache)
+    got = InferenceEngine(model_cache_dir=cache, device="cpu").run_task(
+        "transcription", wav, cfg)
+    rows_w, conf_w = _split_confidence(want)
+    rows_g, conf_g = _split_confidence(got)
+    assert rows_g == rows_w and len(got) > 0
+    np.testing.assert_allclose(conf_g, conf_w, rtol=0, atol=1e-4)
     # without the model VAD: the energy VAD, as the JAX package falls back to
-    x = audio_io.load_wav(str(audio_dir / "clip.wav"))
     assert np.array_equal(audio_io.compute_vad(x, model_cache_dir=str(audio_dir)),
                           jax_audio_io.compute_vad(x, model_cache_dir=str(audio_dir)))
 
