@@ -75,8 +75,9 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    (combined_visual, the four visual sub-tasks at VISUAL_CONFIG, ocr and
    metadata_extraction active, visual_search and semantic_search on) over a
    folder holding the 60 s clip: discovery folds ocr into visual_analysis.
-   workers.main's discover_at_start and build_worker with the engine on the
-   card and max_jobs 1, then Worker.drain. Launch counts are zeroed just
+   create_app's start-up hook (the API's: scan-path merge, discovery),
+   workers.main's build_worker with the engine on the card and max_jobs 1,
+   then Worker.drain. Launch counts are zeroed just
    before the drain and read just after: K1 once, K2 twice. Both tasks and
    the visual task's two follow-ups (semantic_indexing, visual_indexing)
    must end COMPLETED; the database's artifacts of each sub type, OCR's
@@ -173,14 +174,49 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    on the wav: windows, windows/s, turns, wall, peak MiB. Phase 4e also
    enqueues one speaker_diarization job, which the worker completes with
    speaker.turn rows equal to the engine's;
-9. JSON lines: each slice's results, phase 5's, 6's, 7's and 8's, each
-   phase's seconds, and {"kernels": [...]} with each kernel's launches in
-   the measured run, max error, kernel / plain / bound / library times (K1's
-   and K2's entries also with their launches in the pass with OCR and
-   through the worker; K3's with its launches per MiniLM call at S = 512,
-   on the indexing path, in turbo's int8 and bf16 runs and in a speculative
-   batch);
-10. the card's name and power limit (nvidia-smi), then, as the last line,
+9. the serving path as a deployment runs it: `python -m
+   eioku_tpu_torch.api.main` as its own process (no EIOKU_FORCE_CPU, so on
+   the card) over phase 4e's database, vector files and keyframe cache,
+   with a config of phase 4e's tasks and a model cache holding 4e's MiniLM
+   and phase 5's seeded cross-encoder with its vocab.txt; seconds to its
+   first 200 on /health; /api/v1/device must name the card (backend cuda,
+   platform gpu). 9.2 every route against the database, over a localhost
+   socket (urllib): /videos, the clip's artifacts of five types, jump
+   (object, face, scene), find (an OCR word, a transcript word), subtitles
+   (vtt, srt, with speakers), /people, each equal to what this process
+   reads from the same database; the thumbnail cold then cached (equal
+   bytes), a 5 s /clip (the cv2 re-encode: frames), /stream with a Range
+   (206, the file's bytes), /tasks, /stats, /metrics, /openapi.json, the
+   SPA. 9.3 search on the card: the first semantic request (MiniLM loads
+   in the API process) timed apart, then p50 and p95 over API_REQUESTS
+   requests of each mode (semantic, keyword, hybrid, visual, semantic with
+   rerank, /similar); the semantic and visual hits equal SemanticIndex's
+   and VisualIndex's in this process on the same files (order, and scores
+   within 2e-2), whose search calls are timed alone beside them (the
+   difference is HTTP, JSON and the loop), and rerank answers reranked. 9.4 /health alone and among
+   API_CONCURRENT concurrent semantic searches. 9.5 PUT a second clip
+   (other colours and cuts) to /videos/upload, drain the queue with the
+   port's worker in this process on the same database and card while the
+   API process runs, with the launch counts zeroed just before the drain
+   and read just after (K1 once, K2 twice), then poll the API until the new
+   video answers visual search (one hit per keyframe) and jump (its first
+   cut): the wall from upload to visually searchable, split into the PUT,
+   the engine, the host stack, the follow-ups and the first search after
+   the append. 9.6 the ops CLI as processes on the card: `search` agrees
+   with the API's semantic hits; `stats`, `people`, `export-dump`, then
+   `import-dump` into a fresh database with the exported row counts. 9.7
+   each process's device memory (nvidia-smi's memory.used before the API
+   starts and after its warm-up, less this process's allocator growth).
+   The server is stopped at the
+   end of the phase, and killed if it fails;
+10. JSON lines: each slice's results, phase 5's, 6's, 7's, 8's and 9's
+   ({"api": ...}), each phase's seconds, and {"kernels": [...]} with each
+   kernel's launches in the measured run, max error, kernel / plain / bound
+   / library times (K1's and K2's entries also with their launches in the
+   pass with OCR, through the worker and in phase 9's upload drain; K3's
+   with its launches per MiniLM call at S = 512, on the indexing path, in
+   turbo's int8 and bf16 runs and in a speculative batch);
+11. the card's name and power limit (nvidia-smi), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits nonzero and
@@ -636,16 +672,19 @@ def phase_k3_minilm(dev) -> None:
             f"{bound_ms / ms:.1%} of the bound, {ms / library_ms:.3f}x the library time")
 
 
-def write_clip(path: str) -> int:
+CLIP_COLORS = [(200, 40, 40), (40, 200, 40), (40, 40, 220), (220, 220, 60),
+               (30, 30, 30), (200, 60, 200)]
+
+
+def write_clip(path: str, seconds: int = CLIP_SECONDS, cut_every_s: int = CUT_EVERY_S,
+               colors=CLIP_COLORS, seed: int = 0) -> int:
     """A 1280x720 mp4v clip of solid colour segments with per-pixel noise and
     a moving block; returns the number of planted cuts."""
     import cv2
 
-    colors = [(200, 40, 40), (40, 200, 40), (40, 40, 220), (220, 220, 60),
-              (30, 30, 30), (200, 60, 200)]
-    n_frames = CLIP_SECONDS * CLIP_FPS
-    seg = CUT_EVERY_S * CLIP_FPS
-    rng = np.random.default_rng(0)
+    n_frames = seconds * CLIP_FPS
+    seg = cut_every_s * CLIP_FPS
+    rng = np.random.default_rng(seed)
     noise = [rng.integers(-4, 5, (CLIP_H, CLIP_W, 3)) for _ in range(4)]
     # per colour: a few noisy uint8 frames, cycled (BGR for cv2)
     bases = [[np.clip(np.array((b, g, r)) + n, 0, 255).astype(np.uint8)
@@ -1299,7 +1338,7 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
     from eioku_tpu_torch.ops import _cuda
     from eioku_tpu_torch.queue.worker import WorkerSettings
     from eioku_tpu_torch.utils.hashing import hash_file
-    from eioku_tpu_torch.workers.main import build_worker, discover_at_start
+    from eioku_tpu_torch.workers.main import build_worker
 
     if not _fts5_enabled():
         raise AssertionError("this host's sqlite3 is built without FTS5: the "
@@ -1320,8 +1359,9 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
         raise AssertionError("visual_search is off by default")
     ctx = build_context(config)
     seeks = _count_calls(ctx.extra["visual_index"], "_decode_at")
-    report = discover_at_start(ctx)
-    log(f"worker: discovery {report}")
+    api_startup(ctx)  # the API's start-up: path merge, discovery, enqueue
+    log(f"worker: discovery at the API's start-up: {ctx.videos.count()} video, tasks "
+        f"{sorted(t.task_type for t in ctx.tasks.find(limit=20))}")
     engine = InferenceEngine(model_cache_dir=cache, model_profile=config.model_profile,
                              device=dev)
     returned, engine_s, worker_s = {}, {}, {}
@@ -1480,6 +1520,23 @@ def phase_worker(dev, workdir: str, clip: str, wav: str, cpu_scenes: list,
     return {"tasks": per_task, "followups_s": followups, "launches": launches,
             "transcription_launches": tr_launches, "find_word": word,
             "semantic_indexing": semantic, "ocr_and_visual_index": ocr, "card": card}
+
+
+def api_startup(ctx) -> None:
+    """create_app's start-up and shut-down hooks on `ctx`, as the API process
+    runs them (the worker discovers nothing itself): the configured scan
+    paths merge into the database and discovery enqueues their videos'
+    tasks."""
+    import asyncio
+
+    from eioku_tpu_torch.api.app import create_app
+
+    app = create_app(ctx=ctx, start_reconciler=False)
+
+    async def lifespan():
+        for hook in app.on_startup + app.on_shutdown:
+            await hook()
+    asyncio.run(lifespan())
 
 
 def _check_ocr_and_visual_followups(ctx, video_id: str, visual: dict, seeks: int) -> dict:
@@ -2595,6 +2652,574 @@ def phase_audio(dev, wav: str, workdir: str, card: str) -> dict:
             "diarization": phase_diarization(dev, wav, card)}
 
 
+# -- phase 9: the HTTP API as its own process, the worker beside it, the CLI -------------
+
+API_REQUESTS = 50  # timed requests per search mode
+API_CONCURRENT = 8  # semantic searches in flight while /health is timed
+API_SEARCH_TOL = 2e-2  # a hit's score, API process against this process (both bf16)
+UPLOAD_SECONDS, UPLOAD_CUT_EVERY_S = 20, 4  # the uploaded clip: 5 segments, 4 cuts
+UPLOAD_COLORS = [(20, 160, 200), (240, 120, 20), (90, 90, 250), (10, 220, 120),
+                 (250, 250, 250)]
+
+
+class ApiClient:
+    """The API process over a localhost socket (urllib; one connection per
+    request, as a browser's fetch without keep-alive)."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def request(self, path: str, method: str = "GET", data: bytes | None = None,
+                headers: dict | None = None, expect: int = 200):
+        """(body, content type, ms); any other status than `expect` fails."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=data, method=method,
+                                     headers=headers or {})
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body, status, ctype = r.read(), r.status, r.headers.get("content-type", "")
+        except urllib.error.HTTPError as e:
+            body, status, ctype = e.read(), e.code, e.headers.get("content-type", "")
+        ms = (time.perf_counter() - t) * 1e3
+        if status != expect:
+            raise AssertionError(f"api: {method} {path} answered {status} (want {expect}): "
+                                 f"{body[:300]!r}")
+        return body, ctype, ms
+
+    def json(self, path: str, **kw):
+        body, ctype, ms = self.request(path, **kw)
+        if not ctype.startswith("application/json"):
+            raise AssertionError(f"api: {path} answered {ctype}")
+        return json.loads(body), ms
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _service_env() -> dict:
+    """The environment of the service processes (started with `python -m`
+    from the checkout's root): no EIOKU_FORCE_CPU, so they run on the card."""
+    env = dict(os.environ)
+    env.pop("EIOKU_FORCE_CPU", None)
+    return env
+
+
+def _jsonable(x):
+    return json.loads(json.dumps(x))
+
+
+def _same_hits(got: list, want: list, label: str) -> float:
+    """The same hits in the same order, scores within API_SEARCH_TOL;
+    returns the largest score difference."""
+    strip = lambda h: {k: v for k, v in h.items() if k not in ("score", "rerank_score")}  # noqa: E731
+    if [strip(h) for h in got] != [strip(h) for h in want] or not want:
+        raise AssertionError(f"api {label}: hits {got[:3]} differ from {want[:3]}")
+    worst = max(abs(g["score"] - w["score"]) for g, w in zip(got, want))
+    if worst > API_SEARCH_TOL:
+        raise AssertionError(f"api {label}: scores differ by {worst}")
+    return worst
+
+
+def _percentiles(times: list[float]) -> dict:
+    a = np.asarray(times)
+    return {"p50_ms": float(np.percentile(a, 50)), "p95_ms": float(np.percentile(a, 95))}
+
+
+def _api_routes(api: ApiClient, ctx, clip_id: str, wav_id: str, clip_path: str) -> dict:
+    """9.2 the routes that read the database the worker wrote: each answer
+    equals what this process reads from the same database."""
+    from urllib.parse import quote
+
+    import cv2
+
+    from eioku_tpu_torch.api.controllers import _attribute_speakers
+    from eioku_tpu_torch.services.people import cluster_people
+    from eioku_tpu_torch.services.subtitles import to_srt, to_vtt
+
+    checked = 0
+    videos, _ = api.json("/api/v1/videos")
+    if sorted(v["id"] for v in videos["videos"]) != sorted(v.id for v in ctx.videos.list()):
+        raise AssertionError(f"api /videos: {videos}")
+    for kind in ("object.detection", "face.detection", "ocr.text", "scene",
+                 "place.classification"):
+        got, _ = api.json(f"/api/v1/videos/{clip_id}/artifacts?type={kind}")
+        want = [e.to_dict() for e in ctx.artifacts.get_by_asset(
+            clip_id, artifact_type=kind, selection=ctx.policies.get_policy(clip_id, kind),
+            limit=10000)]
+        if got["artifacts"] != _jsonable(want) or not want:
+            raise AssertionError(f"api artifacts {kind}: {got['total']} rows, want {len(want)}")
+        checked += 1
+    jumps = {}
+    for kind, t in (("object", 0), ("face", 0), ("scene", 15000)):
+        got, _ = api.json(f"/api/v1/videos/{clip_id}/jump?kind={kind}&from_ms={t}")
+        want = ctx.jump.jump(clip_id, kind, from_ms=t)
+        if got != {"found": want is not None, "jump_to": _jsonable(want)} or want is None:
+            raise AssertionError(f"api jump {kind}: {got} (want {want})")
+        jumps[kind] = want["start_ms"]
+        checked += 1
+    words = {}
+    for vid, table in ((clip_id, "ocr_fts"), (wav_id, "transcript_fts")):
+        texts = [r[0] for r in ctx.db.query(
+            f"SELECT f.text FROM {table} f JOIN {table}_meta m ON m.rowid = f.rowid "
+            "WHERE m.asset_id = ?", (vid,))]
+        word = sorted({w for t in texts for w in re.findall(r"[^\W_]+", t)},
+                      key=lambda w: (-len(w), w))[0]
+        got, _ = api.json(f"/api/v1/videos/{vid}/find?q={quote(word)}")
+        want = ctx.find.find(vid, word)
+        if got["matches"] != _jsonable(want) or not want:
+            raise AssertionError(f"api find {word!r}: {got}")
+        words[table] = word
+        checked += 1
+    segs = [e.to_dict() for e in ctx.artifacts.get_by_asset(
+        wav_id, artifact_type="transcript.segment",
+        selection=ctx.policies.get_policy(wav_id, "transcript.segment"), limit=100000)]
+    speakers = json.loads(json.dumps(segs))
+    _attribute_speakers(ctx, wav_id, speakers)
+    for query, want, ctype in (("format=vtt", to_vtt(segs), "text/vtt"),
+                               ("format=srt", to_srt(segs), "application/x-subrip"),
+                               ("format=vtt&with_speakers=1", to_vtt(speakers), "text/vtt")):
+        body, got_type, _ = api.request(f"/api/v1/videos/{wav_id}/subtitles?{query}")
+        if body.decode() != want or not got_type.startswith(ctype) or len(want) < 20:
+            raise AssertionError(f"api subtitles {query}: {body[:200]!r}")
+        checked += 1
+    people, _ = api.json("/api/v1/people")
+    if people["people"] != _jsonable(cluster_people(ctx)):
+        raise AssertionError(f"api /people: {people['total']} persons")
+    checked += 1
+    thumbs = []
+    for _ in range(2):  # cold (seek, decode, encode), then from the cache
+        body, ctype, ms = api.request(f"/api/v1/videos/{clip_id}/thumbnail")
+        if ctype != "image/jpeg" or body[:2] != b"\xff\xd8":
+            raise AssertionError(f"api thumbnail: {ctype}")
+        thumbs.append((body, ms))
+    if thumbs[0][0] != thumbs[1][0]:
+        raise AssertionError("api thumbnail: the cached image differs")
+    body, ctype, clip_ms = api.request(
+        f"/api/v1/videos/{clip_id}/clip?start_ms=10000&end_ms=15000")
+    out = os.path.join(os.path.dirname(os.path.dirname(clip_path)), "exported_clip.mp4")
+    with open(out, "wb") as f:
+        f.write(body)
+    cap = cv2.VideoCapture(out)
+    clip_frames = 0
+    while cap.read()[0]:
+        clip_frames += 1
+    cap.release()
+    if ctype != "video/mp4" or not 5 * CLIP_FPS - 5 <= clip_frames <= 5 * CLIP_FPS + 5:
+        raise AssertionError(f"api clip: {ctype}, {clip_frames} frames for 5 s")
+    body, ctype, _ = api.request(f"/api/v1/videos/{clip_id}/stream",
+                                 headers={"Range": "bytes=1000-5095"}, expect=206)
+    with open(clip_path, "rb") as f:
+        f.seek(1000)
+        if body != f.read(4096):
+            raise AssertionError("api stream: the range's bytes differ from the file's")
+    tasks, _ = api.json("/api/v1/tasks")
+    stats, _ = api.json("/api/v1/stats")
+    if tasks["total"] != ctx.tasks.count() or stats["videos"]["total"] != ctx.videos.count() \
+            or stats["semantic_index"]["chunks"] != ctx.db.scalar(
+                "SELECT COUNT(*) FROM embedding_chunks"):
+        raise AssertionError(f"api tasks/stats: {tasks['total']}, {stats}")
+    body, ctype, _ = api.request("/api/v1/metrics?format=prometheus")
+    if not ctype.startswith("text/plain") or b"eioku_" not in body:
+        raise AssertionError(f"api metrics: {body[:200]!r}")
+    spec, _ = api.json("/openapi.json")
+    body, ctype, _ = api.request("/")
+    if "/api/v1/search" not in spec["paths"] or not ctype.startswith("text/html"):
+        raise AssertionError("api: /openapi.json or the SPA")
+    checked += 10
+    log(f"api routes: {checked} checks against the database; jumps {jumps}, find "
+        f"{words}, {people['total']} persons; thumbnail cold {thumbs[0][1]:.1f} ms, "
+        f"cached {thumbs[1][1]:.1f} ms; clip 5 s ({clip_frames} frames, cv2 re-encode) "
+        f"{clip_ms:.1f} ms")
+    return {"checks": checked, "thumbnail_cold_ms": thumbs[0][1],
+            "thumbnail_cached_ms": thumbs[1][1], "clip_5s_ms": clip_ms,
+            "clip_frames": clip_frames, "persons": people["total"], "find_words": words}
+
+
+def _api_search(api: ApiClient, ctx, clip_id: str, q_sem: str, word: str) -> dict:
+    """9.3 search on the card: the first semantic call (MiniLM loads in the
+    API process) timed apart, then API_REQUESTS calls per mode; the hits
+    equal this process's indexes' on the same files."""
+    from urllib.parse import quote
+
+    sem_path = f"/api/v1/search?q={quote(q_sem)}&top_k=10"
+    cold, cold_ms = api.json(sem_path)
+    local = ctx.extra["semantic_index"].search(q_sem, top_k=10)
+    sem_err = _same_hits(cold["results"], _jsonable(local), "semantic")
+    q_vis = "a red frame"
+    modes = {
+        "semantic": sem_path,
+        "keyword": f"/api/v1/search?q={quote(word)}&mode=keyword&top_k=10",
+        "hybrid": f"/api/v1/search?q={quote(q_sem)}&mode=hybrid&top_k=10",
+        "visual": f"/api/v1/search?q={quote(q_vis)}&mode=visual&top_k=10",
+        "semantic_rerank": f"{sem_path}&rerank=1",
+        "similar": f"/api/v1/videos/{clip_id}/similar?at_ms=15000&top_k=10",
+    }
+    out = {"cold_semantic_ms": cold_ms, "semantic_max_score_diff": sem_err}
+    for mode, path in modes.items():
+        first, first_ms = api.json(path)  # loads the mode's model where it has one
+        times = [api.json(path)[1] for _ in range(API_REQUESTS)]
+        out[mode] = {"first_ms": first_ms, **_percentiles(times),
+                     "hits": len(first["results"])}
+        if not first["results"]:
+            raise AssertionError(f"api search {mode}: no hit")
+        if mode == "visual":
+            local = ctx.extra["visual_index"].search(q_vis, 10, None)
+            out["visual_max_score_diff"] = _same_hits(first["results"], _jsonable(local),
+                                                      "visual")
+        if mode in ("semantic", "visual"):  # the index call alone, in this process
+            index = ctx.extra[f"{mode}_index"]
+            query = q_sem if mode == "semantic" else q_vis
+            local_ms = []
+            for _ in range(API_REQUESTS):
+                t = time.perf_counter()
+                index.search(query, 10)
+                local_ms.append((time.perf_counter() - t) * 1e3)
+            out[mode]["index_call_p50_ms"] = float(np.median(local_ms))
+        if mode == "semantic_rerank" and first.get("reranked") is not True:
+            raise AssertionError(f"api rerank: reranked is {first.get('reranked')}")
+        log(f"api search {mode}: first {first_ms:.2f} ms, p50 {out[mode]['p50_ms']:.2f} "
+            f"ms, p95 {out[mode]['p95_ms']:.2f} ms over {API_REQUESTS} requests, "
+            f"{len(first['results'])} hits; the index call alone in this process "
+            f"{out[mode].get('index_call_p50_ms', float('nan')):.2f} ms p50")
+    return out
+
+
+def _api_under_load(api: ApiClient, q_sem: str) -> dict:
+    """9.4 /health alone, and issued among API_CONCURRENT semantic searches
+    (which run on the server's event loop thread)."""
+    import threading
+    from urllib.parse import quote
+
+    idle = [api.request("/health")[2] for _ in range(20)]
+    done, errors = [], []
+
+    def search():
+        try:
+            done.append(api.json(f"/api/v1/search?q={quote(q_sem)}&top_k=10")[1])
+        except Exception as e:  # read after the join
+            errors.append(e)
+    threads = [threading.Thread(target=search) for _ in range(API_CONCURRENT)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    time.sleep(0.005)
+    health_ms = api.request("/health")[2]
+    for th in threads:
+        th.join(300)
+    wall = (time.perf_counter() - t) * 1e3
+    if errors or len(done) != API_CONCURRENT:
+        raise AssertionError(f"api under load: {errors}")
+    out = {"health_idle_p50_ms": float(np.median(idle)),
+           "health_among_searches_ms": health_ms, "searches": API_CONCURRENT,
+           "searches_wall_ms": wall, "search_ms_max": max(done)}
+    log(f"api under load: /health {health_ms:.1f} ms among {API_CONCURRENT} concurrent "
+        f"semantic searches (idle p50 {out['health_idle_p50_ms']:.2f} ms); the searches "
+        f"took {wall:.1f} ms together, the slowest {max(done):.1f} ms")
+    return out
+
+
+def _api_upload(api: ApiClient, ctx, dev, workdir: str, cache: str) -> dict:
+    """9.5 PUT an upload, drain the queue with the port's worker in this
+    process (the API process keeps running on the same card), then poll the
+    API until the new video answers visual search and jump."""
+    import asyncio
+    from urllib.parse import quote
+
+    import torch
+
+    from eioku_tpu_torch.domain.models import TaskStatus
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.ops import _cuda
+    from eioku_tpu_torch.queue.worker import WorkerSettings
+    from eioku_tpu_torch.workers.main import build_worker
+
+    second = os.path.join(workdir, "second.mp4")
+    cuts = write_clip(second, UPLOAD_SECONDS, UPLOAD_CUT_EVERY_S, UPLOAD_COLORS, seed=1)
+    with open(second, "rb") as f:
+        data = f.read()
+    engine = InferenceEngine(model_cache_dir=cache, device=dev)
+    engine_s, worker_s = {}, {}
+    run_task = engine.run_task
+
+    def timed_run_task(task_type, video_path, cfg):
+        t = time.perf_counter()
+        try:
+            return run_task(task_type, video_path, cfg)
+        finally:
+            torch.cuda.synchronize()
+            engine_s[task_type] = time.perf_counter() - t
+    engine.run_task = timed_run_task
+    worker = build_worker(app_ctx=ctx, engine=engine,
+                          settings=WorkerSettings(max_jobs=1, poll_delay_s=0.01))
+    process = worker.functions["process_ml_task"]
+
+    async def timed_process(job_ctx, task_id, task_type, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return await process(job_ctx, task_id, task_type, *args, **kwargs)
+        finally:
+            worker_s[task_type] = time.perf_counter() - t
+    worker.register("process_ml_task", timed_process)
+
+    t0 = time.perf_counter()
+    body, _, upload_ms = api.request("/api/v1/videos/upload?filename=second.mp4",
+                                     method="PUT", data=data, expect=201,
+                                     headers={"Content-Type": "application/octet-stream"})
+    uploaded = json.loads(body)
+    vid = uploaded["video"]["id"]
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    asyncio.run(worker.drain())
+    drain_s = time.perf_counter() - t
+    launches = _cuda.launch_counts()
+    tasks = {t.task_type: t for t in ctx.tasks.find(video_id=vid, limit=20)}
+    if "visual_indexing" not in tasks or any(
+            t.status is not TaskStatus.COMPLETED for t in tasks.values()):
+        raise AssertionError("api upload: tasks " + str(
+            [(t.task_type, t.status.value, t.error) for t in tasks.values()]))
+    if launches["scene_diff"] != 1 or launches["nms"] != 2:
+        raise AssertionError(f"api upload: expected K1 x1 and K2 x2 in the drain, "
+                             f"got {launches}")
+    keyframes = ctx.db.scalar("SELECT COUNT(*) FROM frame_embeddings WHERE asset_id = ?",
+                              (vid,))
+    polls, first_search_ms = 0, None
+    while True:
+        hits, ms = api.json(f"/api/v1/search?q={quote('a red frame')}&mode=visual"
+                            f"&top_k=50&video_id={vid}")
+        first_search_ms = ms if first_search_ms is None else first_search_ms
+        jump, _ = api.json(f"/api/v1/videos/{vid}/jump?kind=scene&from_ms=1")
+        polls += 1
+        if hits["results"] and jump["found"]:
+            break
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"api upload: {vid} not searchable: {hits}, {jump}")
+        time.sleep(0.05)
+    total_s = time.perf_counter() - t0
+    if len(hits["results"]) != keyframes or keyframes != cuts + 1 or \
+            abs(jump["jump_to"]["start_ms"] - UPLOAD_CUT_EVERY_S * 1000) > 300:
+        raise AssertionError(f"api upload: {len(hits['results'])} visual hits for "
+                             f"{keyframes} keyframes ({cuts} cuts); next scene {jump}")
+    engine_tasks = [t for t in engine_s if t in worker_s]
+    out = {"video_id": vid, "bytes": len(data), "tasks": sorted(tasks),
+           "upload_ms": upload_ms, "drain_s": drain_s,
+           "engine_s": {t: engine_s[t] for t in engine_tasks},
+           "host_stack_s": {t: worker_s[t] - engine_s[t] for t in engine_tasks},
+           "followups_s": {t: worker_s[t] for t in worker_s if t not in engine_s},
+           "first_search_after_append_ms": first_search_ms, "polls": polls,
+           "upload_to_visually_searchable_s": total_s, "keyframes": keyframes,
+           "launches": launches}
+    log(f"api upload {len(data)} bytes: PUT {upload_ms:.1f} ms, drain {drain_s:.3f} s "
+        f"(engine {out['engine_s']}, host stack {out['host_stack_s']}, follow-ups "
+        f"{out['followups_s']}), first visual search after the append "
+        f"{first_search_ms:.1f} ms; upload to visually searchable {total_s:.3f} s; "
+        f"launches {launches}")
+    return out
+
+
+def _api_cli(ctx, cfg_path: str, db_url: str, workdir: str, q_sem: str,
+             api_hits: list, persons: int) -> dict:
+    """9.6 the ops CLI as its own processes on the card: search agrees with
+    the API, stats and people with the database, and an export-dump
+    imports into a fresh database with the same row counts."""
+    cli = [sys.executable, "-m", "eioku_tpu_torch.cli", "--db", db_url, "--config", cfg_path]
+    dump = os.path.join(workdir, "library.jsonl.gz")
+    runs = {"search": ["search", q_sem, "--top-k", "10"], "stats": ["stats"],
+            "people": ["people"], "export_dump": ["export-dump", "--out", dump]}
+    env, repo = _service_env(), os.path.dirname(os.path.abspath(__file__))
+    procs, out = {}, {}
+    t = time.perf_counter()
+    try:
+        for name, args in runs.items():  # four processes at once
+            procs[name] = subprocess.Popen(cli + args, cwd=repo, env=env, text=True,
+                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"cli {name}: rc {p.returncode}: {stderr[-2000:]}")
+            out[name] = stdout
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    parallel_s = time.perf_counter() - t
+    lines = out["search"].splitlines()
+    if len(lines) != len(api_hits) or not lines:
+        raise AssertionError(f"cli search: {len(lines)} lines, the API {len(api_hits)} hits")
+    for line, hit in zip(lines, api_hits):
+        score, rest = line.split("  ", 1)
+        want = (f"{hit['video_id'][:8]}  [{hit['jump_to']['start_ms']}ms]  "
+                f"{hit['text'][:100]}")
+        if rest != want or abs(float(score) - hit["score"]) > API_SEARCH_TOL + 1e-3:
+            raise AssertionError(f"cli search: {line!r} against the API's {hit}")
+    stats = json.loads(out["stats"])
+    if stats["videos"]["total"] != ctx.videos.count():
+        raise AssertionError(f"cli stats: {stats}")
+    cli_persons = sum(1 for ln in out["people"].splitlines() if ln.startswith("person_"))
+    if cli_persons != persons:
+        raise AssertionError(f"cli people: {cli_persons} persons, the API {persons}")
+    exported = json.loads(out["export_dump"])
+    fresh = os.path.join(workdir, "restored.db")
+    t = time.perf_counter()
+    r = subprocess.run(cli[:4] + [f"sqlite:///{fresh}"] + cli[5:] +
+                       ["import-dump", "--source", dump, "--no-reindex"],
+                       cwd=repo, env=env, text=True, capture_output=True, timeout=300)
+    import_s = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(f"cli import-dump: rc {r.returncode}: {r.stderr[-2000:]}")
+    imported = json.loads(r.stdout)
+    keys = ("videos", "tasks", "runs", "artifacts", "selections", "paths")
+    if any(imported[k] != exported[k] for k in keys) or not exported["artifacts"]:
+        raise AssertionError(f"cli dump: exported {exported}, imported {imported}")
+    log(f"cli: search agrees with the API ({len(lines)} hits), stats, people ({persons}) "
+        f"and export-dump as 4 processes in {parallel_s:.2f} s; import-dump into a fresh "
+        f"database {import_s:.2f} s: {imported}")
+    return {"search_hits": len(lines), "four_commands_s": parallel_s,
+            "import_dump_s": import_s,
+            "rows": {k: exported[k] for k in keys}}
+
+
+def _device_memory() -> dict:
+    """The card's used MiB and its compute processes (pid -> MiB), from
+    nvidia-smi. In a container the pids may be the host's, not ours."""
+    def query(args: list[str]) -> list[list[str]]:
+        out = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout
+        return [[x.strip() for x in line.split(",")] for line in out.strip().splitlines()]
+    import torch
+
+    apps = {int(pid): int(mib) for pid, mib in query(
+        ["--query-compute-apps=pid,used_memory"]) if pid.isdigit() and mib.isdigit()}
+    return {"used_mib": int(query(["--query-gpu=memory.used"])[0][0]), "apps": apps,
+            "reserved_mib": torch.cuda.memory_reserved() / 2**20}
+
+
+def _check_device(device: dict, card: str) -> None:
+    """/api/v1/device names this card: the CUDA backend, platform gpu, and
+    the name torch and nvidia-smi give."""
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    if device["backend"] != "cuda" or device["devices"][0]["platform"] != "gpu" \
+            or device["devices"][0]["kind"] != name or not card.startswith(name):
+        raise AssertionError(f"api /device: {device} on {card}")
+
+
+def phase_api(dev, workdir: str, card: str) -> dict:
+    """Phase 9: the API as its own process on phase 4e's database, the
+    worker beside it in this process, the ops CLI."""
+    from urllib.parse import quote
+
+    from eioku_tpu_torch.api.app import build_context
+    from eioku_tpu_torch.config.settings import load_config
+
+    root = os.path.join(workdir, "worker")
+    db_url = f"sqlite:///{root}/eioku.db"
+    # a cache of its own: phase 4e's MiniLM, phase 5's seeded cross-encoder
+    # and its vocab.txt (which the MiniLM tokenizer then reads too, hazard m)
+    cache = os.path.join(workdir, "api_models")
+    os.makedirs(os.path.join(cache, "minilm-l6"))
+    os.link(os.path.join(workdir, "models", "minilm-l6", "pytorch_model.bin"),
+            os.path.join(cache, "minilm-l6", "pytorch_model.bin"))
+    write_cross_encoder_checkpoint(cache, list(SEM_WORDS))
+    cfg_path = os.path.join(workdir, "api_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"paths": [os.path.join(root, "videos")], "database_url": db_url,
+                   "model_cache_dir": cache, "auto_discover": True, "combined_visual": True,
+                   "active_task_types": ["scene_detection", "object_detection",
+                                         "face_detection", "place_classification", "ocr",
+                                         "metadata_extraction"],
+                   "task_settings": {k: v for k, v in VISUAL_CONFIG.items() if v}}, f)
+    ctx = build_context(load_config(cfg_path))  # this process: CUDA
+    clip_id = ctx.videos.get_by_path(os.path.join(root, "videos", "clip.mp4")).id
+    (wav_id,) = {r[0] for r in ctx.db.query(
+        "SELECT asset_id FROM artifacts WHERE artifact_type = 'transcript.segment'")}
+    q_sem = ctx.db.scalar("SELECT text FROM embedding_chunks WHERE asset_id = ? "
+                          "ORDER BY slot DESC LIMIT 1", (wav_id,))
+    wordpiece_built = os.path.exists(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "eioku_tpu_torch", "_build",
+        "libwordpiece.so"))
+    mem_before = _device_memory()  # this process alone on the card
+    port = _free_port()
+    log_path = os.path.join(workdir, "api.log")
+    logf = open(log_path, "w")
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "eioku_tpu_torch.api.main", "--config", cfg_path,
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=_service_env(),
+        stdout=logf, stderr=subprocess.STDOUT)
+    api = ApiClient(port)
+    try:
+        while True:  # the first 200 on /health
+            if proc.poll() is not None:
+                raise AssertionError(f"api: the server exited with {proc.returncode}")
+            try:
+                api.request("/health")
+                break
+            except (OSError, AssertionError):
+                if time.perf_counter() - t > 180:
+                    raise
+                time.sleep(0.05)
+        startup_s = time.perf_counter() - t
+        device, _ = api.json("/api/v1/device")
+        _check_device(device, card)
+        log(f"api: process {proc.pid} answered /health {startup_s:.2f} s after its start; "
+            f"/device {device['devices'][0]}")
+        routes = _api_routes(api, ctx, clip_id, wav_id,
+                             os.path.join(root, "videos", "clip.mp4"))
+        search = _api_search(api, ctx, clip_id, q_sem, routes["find_words"]["transcript_fts"])
+        load = _api_under_load(api, q_sem)
+        # the API process's share: the card's growth since before its start,
+        # less what this process's allocator took meanwhile (its local
+        # searches); this process's: the card's use before the start, plus
+        # that growth of its allocator
+        mem_after = _device_memory()
+        grown = mem_after["reserved_mib"] - mem_before["reserved_mib"]
+        memory = {"api_process_mib": mem_after["used_mib"] - mem_before["used_mib"] - grown,
+                  "this_process_mib": mem_before["used_mib"] + grown,
+                  "card_used_mib": mem_after["used_mib"],
+                  "this_process_reserved_mib": mem_after["reserved_mib"],
+                  "compute_apps": mem_after["apps"]}
+        log(f"api: device memory after search warm-up (nvidia-smi): the card "
+            f"{mem_after['used_mib']} MiB, the API process ~{memory['api_process_mib']:.0f} "
+            f"MiB, this process ~{memory['this_process_mib']:.0f} MiB (its allocator "
+            f"{mem_after['reserved_mib']:.0f} MiB); compute apps {mem_after['apps']} "
+            f"(pids {proc.pid} and {os.getpid()} here) ({card})")
+        upload = _api_upload(api, ctx, dev, workdir, cache)
+        sem_hits, _ = api.json(f"/api/v1/search?q={quote(q_sem)}&top_k=10")
+        cli = _api_cli(ctx, cfg_path, db_url, workdir, q_sem, sem_hits["results"],
+                       routes["persons"])
+    except Exception:
+        logf.flush()
+        with open(log_path) as f:
+            log("api process output (tail):\n" + f.read()[-4000:])
+        raise
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        logf.close()
+    with open(log_path) as f:
+        log("api process log (tail):\n" + "".join(f.readlines()[-12:]))
+    search["wordpiece_shim_built_before_cold_call"] = wordpiece_built
+    return {"startup_s": startup_s, "device": device["devices"][0], "routes": routes,
+            "search": search, "under_load": load, "memory": memory, "upload": upload,
+            "cli": cli, "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -2638,19 +3263,22 @@ def main() -> int:
         ocr = timed("6 OCR", phase_ocr, dev, workdir, card)
         clip = timed("7 CLIP", phase_clip, dev, workdir, card)
         audio = timed("8 audio", phase_audio, dev, wav, workdir, card)
+        api = timed("9 API", phase_api, dev, workdir, card)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
          "replaces": "eioku_tpu/ops/scene_diff.py:32",
          "launches": sl["launches"]["scene_diff"],
          "launches_with_ocr": ocr["visual_analysis"]["launches"]["scene_diff"],
-         "launches_through_worker": wk["launches"]["scene_diff"], **k1},
+         "launches_through_worker": wk["launches"]["scene_diff"],
+         "launches_through_api_upload": api["upload"]["launches"]["scene_diff"], **k1},
         {"name": "nms_keep", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/nms.cu",
          "replaces": "eioku_tpu/ops/nms.py:30",
          "launches": sl["launches"]["nms"],
          "launches_with_ocr": ocr["visual_analysis"]["launches"]["nms"],
-         "launches_through_worker": wk["launches"]["nms"], **k2,
+         "launches_through_worker": wk["launches"]["nms"],
+         "launches_through_api_upload": api["upload"]["launches"]["nms"], **k2,
          "on_face_candidates": sl["k2_faces"], "on_object_candidates": sl["k2_objects"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/flash_attention.cu",
@@ -2674,6 +3302,7 @@ def main() -> int:
     print(json.dumps({"semantic": sem}))
     print(json.dumps({"ocr": ocr, "clip": clip}))
     print(json.dumps({"audio": audio}))
+    print(json.dumps({"api": api}))
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,6 +7,9 @@ stream to 16 kHz mono float32; without it, .wav files load through the
 stdlib (resampled to 16 kHz) and .mp3/.ogg/.flac through SDL_mixer (pygame)
 with SDL's dummy audio output. For a video path a sidecar audio file with the
 same basename is used when present; otherwise the task reports no audio.
+The shim's encoders (`native_encode`, `native_media_encode`: `cli
+extract-audio`) and its stream-copy clip remux (services/clips.py) are the
+JAX package's too.
 
 Voice activity: the model VAD (models/vad) when a Silero checkpoint under
 the model cache loads, as in the JAX package; the energy VAD otherwise.
@@ -83,6 +86,29 @@ def _configure_av(lib) -> None:
     lib.eioku_audio_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
     lib.eioku_audio_probe.restype = ctypes.c_int
     lib.eioku_audio_probe.argtypes = [ctypes.c_char_p]
+    lib.eioku_audio_encode.restype = ctypes.c_int
+    lib.eioku_audio_encode.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_longlong,
+        ctypes.c_int]
+    lib.eioku_media_encode.restype = ctypes.c_int
+    lib.eioku_media_encode.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_double, ctypes.POINTER(ctypes.c_float),
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_char_p]
+    lib.eioku_media_encode_mapped.restype = ctypes.c_int
+    lib.eioku_media_encode_mapped.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_char_p]
+    lib.eioku_media_encode_ex.restype = ctypes.c_int
+    lib.eioku_media_encode_ex.argtypes = \
+        lib.eioku_media_encode_mapped.argtypes + [ctypes.c_longlong,
+                                                  ctypes.c_char_p]
+    lib.eioku_clip_remux.restype = ctypes.c_int
+    lib.eioku_clip_remux.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_longlong,
+        ctypes.c_longlong]
 
 
 def native_decoder():
@@ -116,6 +142,71 @@ def native_decode(path: str, target_sr: int = SAMPLE_RATE) -> np.ndarray | None:
         lib.eioku_audio_free(buf)
     # float decode of hot lossy sources can slightly overshoot full scale
     return np.clip(x, -1.0, 1.0)
+
+
+def native_encode(path: str, samples: np.ndarray,
+                  sr: int = SAMPLE_RATE) -> None:
+    """Encode mono float32 PCM as AAC into .m4a/.mp4/.mov at `path`."""
+    import ctypes
+    lib = native_decoder()
+    if lib is None:
+        raise RuntimeError("native audio shim unavailable")
+    x = np.ascontiguousarray(samples, np.float32)
+    ret = lib.eioku_audio_encode(
+        path.encode(), x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        len(x), sr)
+    if ret != 0:
+        raise RuntimeError(f"native audio encode failed for {path!r} "
+                           f"(averror {ret})")
+
+
+def native_media_encode(path: str, frames: np.ndarray | None,
+                        fps: float = 10.0,
+                        samples: np.ndarray | None = None,
+                        sr: int = SAMPLE_RATE,
+                        video_codec: str | None = None,
+                        frame_map: np.ndarray | None = None,
+                        video_bitrate: int | None = None,
+                        preset: str | None = None) -> None:
+    """Mux video (frames: (N,H,W,3) uint8 RGB) and/or an AAC audio
+    track (mono float32 PCM) into one container at `path` — the shape
+    real-world library files take. Either stream may be omitted.
+    video_codec picks the encoder by libav name (default libx264;
+    e.g. "libx265", "libvpx-vp9" for decode-breadth fixtures).
+    frame_map (int32 [T]) makes output frame i read frames[frame_map[i]]:
+    long fixtures with few distinct frames need MBs, not GBs, of buffer.
+    video_bitrate (bps; default 800k) and preset (x264 name; default
+    "ultrafast") let realistic-content fixtures carry camera-class
+    bitstreams (8-16 Mbps) so decode pays real-file work."""
+    import ctypes
+    lib = native_decoder()
+    if lib is None:
+        raise RuntimeError("native audio shim unavailable")
+    if frames is not None:
+        f = np.ascontiguousarray(frames, np.uint8)
+        n_frames, h, w = f.shape[:3]
+        rgb = f.ctypes.data_as(ctypes.c_char_p)
+        fmap = None
+        if frame_map is not None:
+            m = np.ascontiguousarray(frame_map, np.int32)
+            if len(m) and (m.min() < 0 or m.max() >= n_frames):
+                raise ValueError("frame_map index out of range")
+            fmap = m.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+            n_frames = len(m)
+    else:
+        rgb, fmap, n_frames, h, w = None, None, 0, 0, 0
+    if samples is not None:
+        x = np.ascontiguousarray(samples, np.float32)
+        pcm, n_pcm = x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(x)
+    else:
+        pcm, n_pcm = None, 0
+    ret = lib.eioku_media_encode_ex(
+        path.encode(), rgb, fmap, n_frames, w, h, float(fps), pcm, n_pcm, sr,
+        video_codec.encode() if video_codec else None,
+        int(video_bitrate or 0), preset.encode() if preset else None)
+    if ret != 0:
+        raise RuntimeError(f"native media encode failed for {path!r} "
+                           f"(averror {ret})")
 
 
 _sdl_mixer = None

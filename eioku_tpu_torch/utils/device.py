@@ -5,6 +5,8 @@ do); a CUDA request on a host without a card raises instead of falling back.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -27,3 +29,18 @@ def compute_dtype(device: torch.device) -> torch.dtype:
 def compute_dtype_name(device: torch.device) -> str:
     """`compute_dtype` as a model config's `compute_dtype` string."""
     return {torch.bfloat16: "bfloat16", torch.float32: "float32"}[compute_dtype(device)]
+
+
+def entry_point_device(needs_card: bool = True) -> str | None:
+    """The device rule of the port's entry points (API, worker, CLI).
+
+    EIOKU_FORCE_CPU=1 puts their models on the CPU ("cpu"). Otherwise they
+    run on CUDA (None, resolved by each model when first needed), and when
+    `needs_card` is true a host without a card raises here, at start, rather
+    than failing every later request that needs the device."""
+    if os.environ.get("EIOKU_FORCE_CPU") == "1":
+        return "cpu"
+    if needs_card and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available on this host; set "
+                           "EIOKU_FORCE_CPU=1 to run the port on the CPU")
+    return None

@@ -4,15 +4,13 @@ Port of eioku_tpu/workers/main.py: queue `ml_jobs`, WORKER_MAX_JOBS default
 1 to serialise the accelerator, job timeout 3600 s, max_tries 1, poll
 0.1 s, schema registration at startup, a reconcile cron every 5 min. The
 engine, the semantic and visual indexes and the reranker run on CUDA;
-EIOKU_FORCE_CPU=1 puts them on the CPU instead (tests, hosts without a card). Without that
-variable, a host without CUDA makes the worker raise at start: it never
-carries on on the CPU. Multi-host start-up
-(the JAX package's initialize_distributed) is not ported.
-
-Until the port has its API, the worker also does the API's start-up work
-(eioku_tpu/api/app.py create_app's startup): it merges the configured scan
-paths into the database and, when auto_discover is on, discovers videos and
-enqueues their tasks before it serves the queue.
+EIOKU_FORCE_CPU=1 puts them on the CPU instead (tests, hosts without a
+card). Without that variable, a host without CUDA makes the worker raise at
+start: it never carries on on the CPU. Multi-host start-up (the JAX
+package's initialize_distributed) is not ported. As in the JAX
+package, the worker only serves the queue: merging the configured scan paths
+and discovering videos at start is the API's start-up work
+(api/app.py create_app).
 
 Usage: python -m eioku_tpu_torch.workers.main [--config PATH] [--db URL]
        [--max-jobs N] [--once]
@@ -21,41 +19,22 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import logging
-import os
 
 from eioku_tpu_torch.api.app import build_context
 from eioku_tpu_torch.config.settings import load_config
-from eioku_tpu_torch.domain.models import PathConfig
 from eioku_tpu_torch.ml.engine import InferenceEngine
 from eioku_tpu_torch.queue.queue import SqliteJobQueue
 from eioku_tpu_torch.queue.worker import Worker, WorkerSettings
+from eioku_tpu_torch.utils.device import entry_point_device
 from eioku_tpu_torch.utils.logging import setup_logging
 from eioku_tpu_torch.workers.task_handler import process_ml_task
-
-log = logging.getLogger(__name__)
-
-
-def discover_at_start(app_ctx) -> dict | None:
-    """Merge the configured scan paths into the database, then discover
-    and enqueue when auto_discover is on; returns the discovery report."""
-    cfg = app_ctx.config
-    for p in cfg.scan_paths:
-        if app_ctx.paths.get_by_path(p) is None:
-            app_ctx.paths.save(PathConfig(
-                path=p, recursive=cfg.path_recursive.get(p, cfg.recursive)))
-    if not cfg.auto_discover:
-        return None
-    report = app_ctx.discovery.discover().to_dict()
-    log.info("startup discovery", extra=report)
-    return report
 
 
 def build_worker(app_ctx=None, config=None, settings: WorkerSettings | None = None,
                  engine: InferenceEngine | None = None,
                  reconcile_interval_s: float = 300.0) -> Worker:
-    # None is CUDA, which raises on a host without a card
-    device = "cpu" if os.environ.get("EIOKU_FORCE_CPU") == "1" else None
+    # None is CUDA: the engine raises on a host without a card
+    device = entry_point_device(needs_card=False)
     app_ctx = app_ctx or build_context(config or load_config(), device=device)
     engine = engine or InferenceEngine(
         model_cache_dir=app_ctx.config.model_cache_dir,
@@ -93,7 +72,6 @@ def main() -> None:
     if args.max_jobs is not None:
         settings.max_jobs = args.max_jobs
     worker = build_worker(config=config, settings=settings)
-    discover_at_start(worker.ctx["app_ctx"])
 
     async def _serve() -> None:
         import signal

@@ -2,14 +2,16 @@
 (CPU).
 
 - The host modules the port copies are the JAX package's modules with the
-  import prefix rewritten: their ASTs (docstrings aside) are equal. The few
-  modules the port changes are listed with their reasons.
+  import prefix rewritten: their ASTs (docstrings aside) are equal, and the
+  SPA's files are byte-equal. The few modules the port changes are listed
+  with the names that differ and why.
 - process_ml_task, fed the same scripted engine results, writes the same
   artifacts, runs, projections, FTS rows, task statuses and follow-up jobs
   through both packages, each on its own SQLite file.
-- Discovery and a worker drain on a real clip give equal scene and metadata
-  rows through both packages; the port's visual_analysis through the worker
-  writes the rows its engine returns.
+- Discovery (create_app's start-up hook, as the API runs it) and a worker
+  drain on a real clip give equal scene and metadata rows through both
+  packages; the port's visual_analysis through the worker writes the rows
+  its engine returns.
 - Failures end the task FAILED with the error recorded; the worker runs on
   the CPU only when EIOKU_FORCE_CPU=1 asks for it; maybe_profile writes a
   torch.profiler trace.
@@ -19,6 +21,7 @@ import asyncio
 import json
 import os
 import pathlib
+import re
 import sys
 
 import cv2
@@ -27,17 +30,17 @@ import pytest
 import torch
 
 from eioku_tpu.api.app import build_context as jax_build_context
+from eioku_tpu.api.app import create_app as jax_create_app
 from eioku_tpu.config.settings import AppConfig as JaxAppConfig
 from eioku_tpu.db.connection import Database as JaxDatabase
-from eioku_tpu.domain.models import PathConfig as JaxPathConfig
 from eioku_tpu.domain.models import Task as JaxTask
 from eioku_tpu.domain.models import Video as JaxVideo
 from eioku_tpu.queue.worker import WorkerSettings as JaxWorkerSettings
 from eioku_tpu.utils.hashing import hash_file as jax_hash_file
 from eioku_tpu.workers.main import build_worker as jax_build_worker
 from eioku_tpu.workers.task_handler import process_ml_task as jax_process_ml_task
-from eioku_tpu_torch.api.app import build_context
-from eioku_tpu_torch.config.settings import AppConfig
+from eioku_tpu_torch.api.app import build_context, create_app
+from eioku_tpu_torch.config.settings import AppConfig, load_config
 from eioku_tpu_torch.db.connection import Database
 from eioku_tpu_torch.domain.models import Task, TaskStatus, Video
 from eioku_tpu_torch.index.rerank import Reranker
@@ -48,7 +51,7 @@ from eioku_tpu_torch.queue.worker import WorkerSettings
 from eioku_tpu_torch.utils.hashing import hash_file
 from eioku_tpu_torch.utils.metrics import maybe_profile
 from eioku_tpu_torch.workers import main as worker_main
-from eioku_tpu_torch.workers.main import build_worker, discover_at_start
+from eioku_tpu_torch.workers.main import build_worker
 from eioku_tpu_torch.workers.task_handler import process_ml_task
 from test_torch_ocr import _write_text_clip as write_text_clip
 from test_torch_ocr import single_torch_thread, use_small_detector, write_ocr_checkpoints
@@ -73,25 +76,47 @@ COPIED = [
     "services/__init__.py", "services/geo_data.py", "services/geocoding.py",
     "services/projection_sync.py", "services/discovery.py", "services/reconciler.py",
     "services/find_service.py", "services/jump_service.py",
+    "services/subtitles.py", "services/people.py", "services/clips.py",
+    "services/dump.py", "services/import_eioku.py",
     "ml/metadata.py", "workers/__init__.py", "workers/task_handler.py",
     "models/embed/tokenizer.py", "models/embed/native_tokenizer.py",
     "models/clip/tokenizer.py", "models/whisper/align.py",
+    "web/__init__.py", "web/framework.py", "web/server.py", "web/testing.py",
+    "api/__init__.py", "api/controllers.py",
 ]
+
+# Functions the port copies into a module of its own: (module, name).
+COPIED_FUNCTIONS = [
+    ("ml/audio_io.py", "_configure_av"), ("ml/audio_io.py", "native_encode"),
+    ("ml/audio_io.py", "native_media_encode"),
+]
+
+# The SPA, served from the package's own frontend/ (api/controllers.py).
+FRONTEND = ["index.html", "app.js", "style.css"]
+# The one difference the copies may have: the JAX files' paths into the
+# reference source drop their leading "/<dir>/reference/", as the Python
+# copies' docstrings do.
+REFERENCE_PREFIX = re.compile(rb"/\w+/reference/")
 
 # Host modules the port changes: the top-level names that differ, and why.
 # Every other top-level class, function and assignment must be equal.
 CHANGED = {
     "utils/metrics.py": ({"maybe_profile"},
                          "traces with torch.profiler, not jax.profiler"),
-    "api/__init__.py": ({"__all__"},
-                        "create_app and the controllers are not ported yet"),
-    "api/app.py": ({"build_context", "create_app"},
-                   "context only: no create_app; the semantic index, the "
-                   "reranker and the visual index take a device"),
+    "api/app.py": ({"build_context"},
+                   "the semantic index, the reranker and the visual index "
+                   "take a device"),
+    "api/main.py": ({"main"},
+                    "the port's device rule replaces maybe_force_cpu: "
+                    "EIOKU_FORCE_CPU puts the indexes on the CPU, otherwise "
+                    "CUDA, and a host without a card raises at start when "
+                    "semantic or visual search is on"),
     "workers/main.py": ({"build_worker", "main"},
                         "EIOKU_FORCE_CPU picks the engine's and the indexes' "
-                        "device; no initialize_distributed; start-up "
-                        "discovery"),
+                        "device; no initialize_distributed"),
+    "cli.py": ({"_ctx", "cmd_finetune"},
+               "_ctx takes the API's device rule; finetune refuses, since "
+               "training is not ported"),
 }
 
 
@@ -112,7 +137,9 @@ def _port_tree(path: pathlib.Path) -> ast.Module:
 
 def _jax_tree_rewritten(rel: str) -> ast.Module:
     src = (REPO / "eioku_tpu" / rel).read_text()
-    return _strip_docstrings(ast.parse(src.replace("eioku_tpu.", "eioku_tpu_torch.")))
+    src = src.replace("eioku_tpu.", "eioku_tpu_torch.").replace(
+        "from eioku_tpu import", "from eioku_tpu_torch import")
+    return _strip_docstrings(ast.parse(src))
 
 
 def _top_level(tree: ast.Module) -> dict[str, str]:
@@ -144,18 +171,40 @@ def test_changed_module_differs_only_where_listed(rel):
             assert port.get(name) == dump, (rel, name)
     for name in differs & port.keys() & jax_side.keys():
         assert port[name] != jax_side[name], (rel, name, "listed but equal")
+    assert port.keys() - jax_side.keys() <= differs, (rel, "names of the port's own")
+
+
+@pytest.mark.parametrize("rel,name", COPIED_FUNCTIONS)
+def test_copied_function_equals_the_jax_function(rel, name):
+    port = _top_level(_port_tree(REPO / "eioku_tpu_torch" / rel))
+    assert port[name] == _top_level(_jax_tree_rewritten(rel))[name], (rel, name)
+
+
+@pytest.mark.parametrize("name", FRONTEND)
+def test_frontend_file_equals_the_jax_file(name):
+    assert (REPO / "eioku_tpu_torch" / "frontend" / name).read_bytes() == \
+        REFERENCE_PREFIX.sub(b"", (REPO / "eioku_tpu" / "frontend" / name).read_bytes())
 
 
 def test_every_host_module_is_listed():
     host_dirs = ("domain", "db", "config", "queue", "repositories", "services",
-                 "api", "workers")
+                 "api", "workers", "web")
     found = {str(p.relative_to(REPO / "eioku_tpu_torch"))
              for d in host_dirs for p in (REPO / "eioku_tpu_torch" / d).rglob("*.py")}
     found |= {"utils/hashing.py", "utils/logging.py", "utils/metrics.py",
               "ml/metadata.py", "models/embed/tokenizer.py",
               "models/embed/native_tokenizer.py", "models/clip/tokenizer.py",
-              "models/whisper/align.py"}
+              "models/whisper/align.py", "cli.py"}
     assert found == set(COPIED) | set(CHANGED)
+    # every function of the JAX audio_io that the CLI or the clips service
+    # calls, and the ctypes signatures they need, is in the port's copy
+    jax_audio = _top_level(_jax_tree_rewritten("ml/audio_io.py"))
+    port_audio = _top_level(_port_tree(REPO / "eioku_tpu_torch" / "ml/audio_io.py"))
+    assert {"native_encode", "native_media_encode", "_configure_av"} == \
+        {name for rel, name in COPIED_FUNCTIONS if rel == "ml/audio_io.py"}
+    assert {"native_encode", "native_media_encode"} <= port_audio.keys() & jax_audio.keys()
+    assert sorted(p.name for p in (REPO / "eioku_tpu_torch" / "frontend").iterdir()) == \
+        sorted(FRONTEND) == sorted(p.name for p in (REPO / "eioku_tpu" / "frontend").iterdir())
 
 
 # ---------------------------------------------------------------------------
@@ -216,12 +265,14 @@ class ScriptedEngine:
 
 
 class Package:
-    """One package's host stack: its context builder, types and handler."""
+    """One package's host stack: its context builder, app, types and handler."""
 
-    def __init__(self, name, build_context, config_cls, database_cls, task_cls,
-                 video_cls, hash_file, process, build_worker, settings_cls, producer):
+    def __init__(self, name, build_context, create_app, config_cls, database_cls,
+                 task_cls, video_cls, hash_file, process, build_worker, settings_cls,
+                 producer):
         self.name = name
         self.build_context = build_context
+        self.create_app = create_app
         self.config_cls = config_cls
         self.database_cls = database_cls
         self.task_cls = task_cls
@@ -233,17 +284,30 @@ class Package:
         self.producer = producer
 
 
-JAX = Package("jax", jax_build_context, JaxAppConfig, JaxDatabase, JaxTask, JaxVideo,
-              jax_hash_file, jax_process_ml_task, jax_build_worker, JaxWorkerSettings,
-              "eioku-tpu-engine")
-PORT = Package("port", build_context, AppConfig, Database, Task, Video, hash_file,
-               process_ml_task, build_worker, WorkerSettings, "eioku-tpu-torch-engine")
+JAX = Package("jax", jax_build_context, jax_create_app, JaxAppConfig, JaxDatabase,
+              JaxTask, JaxVideo, jax_hash_file, jax_process_ml_task, jax_build_worker,
+              JaxWorkerSettings, "eioku-tpu-engine")
+PORT = Package("port", build_context, create_app, AppConfig, Database, Task, Video,
+               hash_file, process_ml_task, build_worker, WorkerSettings,
+               "eioku-tpu-torch-engine")
 
 
 def _context(pkg: Package, tmp: pathlib.Path, **config):
     config.setdefault("scan_paths", [])
     cfg = pkg.config_cls(semantic_search=False, visual_search=False, **config)
     return pkg.build_context(cfg, db=pkg.database_cls(f"sqlite:///{tmp}/{pkg.name}.db"))
+
+
+def _api_startup(pkg: Package, ctx) -> None:
+    """create_app's start-up and shut-down hooks, as the API runs them: the
+    configured scan paths merge into the database, and discovery enqueues
+    when auto_discover is on. The worker does neither."""
+    app = pkg.create_app(ctx=ctx, start_reconciler=False)
+
+    async def lifespan():
+        for hook in app.on_startup + app.on_shutdown:
+            await hook()
+    asyncio.run(lifespan())
 
 
 def _drain(pkg: Package, ctx, engine=None) -> None:
@@ -393,11 +457,7 @@ def _clip_dir(tmp: pathlib.Path) -> pathlib.Path:
 def _discover_and_drain(pkg: Package, tmp: pathlib.Path, engine=None, **config):
     clips = _clip_dir(tmp)
     ctx = _context(pkg, tmp, scan_paths=[str(clips)], **config)
-    if pkg is PORT:
-        discover_at_start(ctx)
-    else:  # the JAX package's API does this at start-up
-        ctx.paths.save(JaxPathConfig(path=str(clips)))
-        ctx.discovery.discover()
+    _api_startup(pkg, ctx)
     _drain(pkg, ctx, engine=engine)
     return ctx
 
@@ -513,7 +573,7 @@ def test_corrupted_file_fails(tmp_path):
     (clips / "broken.mp4").write_bytes(b"not a video")
     ctx = _context(PORT, tmp_path, scan_paths=[str(clips)],
                    active_task_types=["scene_detection"])
-    discover_at_start(ctx)
+    _api_startup(PORT, ctx)
     _drain(PORT, ctx, engine=InferenceEngine(device="cpu"))
     task = _one_task(ctx)
     assert task.status is TaskStatus.FAILED
@@ -524,7 +584,7 @@ def test_changed_file_fails_with_hash_mismatch(tmp_path):
     clips = _clip_dir(tmp_path)
     ctx = _context(PORT, tmp_path, scan_paths=[str(clips)],
                    active_task_types=["scene_detection"])
-    discover_at_start(ctx)
+    _api_startup(PORT, ctx)
     _write_clip(ctx.videos.list()[0].path, [(25, (9, 9, 9))])
     _drain(PORT, ctx, engine=InferenceEngine(device="cpu"))
     task = _one_task(ctx)
@@ -555,7 +615,7 @@ def test_ocr_task_completes_through_the_queue(tmp_path, config, task_type, monke
                     task_settings={"ocr": {"batch_size": 4, "decode_fast": 0},
                                    "scene_detection": {"decode_fast": 0}}, **config)
     ctx = build_context(cfg, db=Database(f"sqlite:///{tmp_path}/ocr.db"), device="cpu")
-    discover_at_start(ctx)
+    _api_startup(PORT, ctx)
     engine = RecordingEngine(model_cache_dir=str(cache), device="cpu")
     with single_torch_thread():  # the CPU LSTM under the suite's load
         _drain(PORT, ctx, engine=engine)
@@ -681,6 +741,9 @@ def test_worker_without_cuda_raises(tmp_path, monkeypatch):
 
 
 def test_worker_main_once_discovers_and_drains(tmp_path, monkeypatch):
+    """As in the JAX package, the worker's main only drains: the videos of
+    the config's paths are discovered by the API's start-up, and the next
+    `--once` drains what it enqueued."""
     clips = _clip_dir(tmp_path)
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({
@@ -692,6 +755,9 @@ def test_worker_main_once_discovers_and_drains(tmp_path, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["main", "--config", str(cfg), "--once"])
     worker_main.main()
     db = Database(f"sqlite:///{tmp_path}/main.db")
+    assert db.scalar("SELECT COUNT(*) FROM videos") == 0  # the worker discovers nothing
+    _api_startup(PORT, build_context(load_config(str(cfg)), device="cpu"))
+    worker_main.main()
     assert _rows(db, "SELECT task_type, status FROM tasks") == \
         [("metadata_extraction", "completed")]
     assert db.scalar("SELECT duration_ms FROM videos") == 7000
