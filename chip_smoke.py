@@ -9,7 +9,8 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    together) and prints the build time and ptxas' resource report; counts
    the HGMMA (wgmma) and UTMALDG (TMA load) instructions in K3's library
    (cuobjdump --dump-sass) and fails if either is 0, or if ptxas reports a
-   spill in K3's bf16 kernel or in K2's two kernels (mask and scan);
+   spill in K3's bf16 and f16 kernels or in K2's two kernels (mask and
+   scan);
 2. K1 scene-diff kernel against its plain PyTorch version on the card, at the
    main path's chain shape [257, 46080] and a ragged one (odd N, D not a
    multiple of 4): max abs error <= 1e-6, then kernel / plain / library time
@@ -22,17 +23,19 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    replayed from a CUDA graph (the gap is the wrapper's host cost), beside
    the launch floor: an empty kernel's graph-replayed time;
 3b. K3 flash-attention kernel against its plain version at the Whisper
-   large-v3 encoder's [4, 20, 1500, 64] in bf16 and f32, causal
-   [2, 4, 200, 64] f32, MiniLM's [2, 12, 512, 32] bf16 with lengths
+   large-v3 encoder's [4, 20, 1500, 64] in bf16, f16 and f32, causal
+   [2, 4, 200, 64] f32, MiniLM's [2, 12, 512, 32] bf16 and f16 with lengths
    [512, 130], and rows of length 0 (zeros, no NaN). fp32: 2e-5 absolute;
    bf16: 1 bf16 ulp of the plain version (fp32 from the same bf16 inputs,
    rounded once) plus 2^-8 * sum_j p_j |v_j|, since the kernel rounds P to
-   bf16 once before P V (csrc/flash_attention.cu). Then kernel / plain /
+   bf16 once before P V (csrc/flash_attention.cu); f16: 1 f16 ulp plus
+   2^-11 * sum_j p_j |v_j|. Then kernel / plain /
    bound / scaled_dot_product_attention times at the encoder's shape, and
    kernel / bound / scaled_dot_product_attention (with a key mask) at
    MiniLM's, there both over back-to-back calls and replayed from a CUDA
    graph (device time without the host's), each with the kernel's share of
-   its bound and its ratio to the library time;
+   its bound and its ratio to the library time; the f16 route likewise at
+   both shapes, beside scaled_dot_product_attention in f16;
 4. the visual pass: InferenceEngine(device="cuda").run_task("visual_analysis")
    with all four sub-tasks at their defaults -- scenes, YOLOv8n objects,
    yolov8n-face faces (threshold FACE_CONF, embeddings on: ArcFace
@@ -63,6 +66,8 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    weights from seed 0, bf16), batch 4, 224 tokens: a warm-up, then a
    measured run whose K3 launches must be 32 x its encoder calls and whose
    result must be [] (random weights emit no rows, as in the JAX package);
+   then the same at compute_dtype float16 (K3's f16 route, 32 launches per
+   encoder call; one f16 encoder output must be finite): wall, audio-s/s;
 4c. production decode at full width: whisper_decode_windows, beam 5, 224
    tokens with EOT suppressed, on the encoder output of those 4 windows;
 4d. card against CPU on the pretrained path: a random tiny tree (seed 0)
@@ -209,14 +214,34 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    starts and after its warm-up, less this process's allocator growth).
    The server is stopped at the
    end of the phase, and killed if it fails;
-10. JSON lines: each slice's results, phase 5's, 6's, 7's, 8's and 9's
-   ({"api": ...}), each phase's seconds, and {"kernels": [...]} with each
-   kernel's launches in the measured run, max error, kernel / plain / bound
-   / library times (K1's and K2's entries also with their launches in the
-   pass with OCR, through the worker and in phase 9's upload drain; K3's
-   with its launches per MiniLM call at S = 512, on the indexing path, in
-   turbo's int8 and bf16 runs and in a speculative batch);
-11. the card's name and power limit (nvidia-smi), then, as the last line,
+10. detection's options on the 60 s clip (TF32 off): 10.1 the device
+   letterbox (ops/resize.py) of one 64-frame batch, card against CPU within
+   LETTERBOX_TOL, within one uint8 level of cv2's host letterbox, and fp32
+   YOLOv8n rows from both letterboxes on the same frames (matched share
+   reported); the
+   object_detection task with preprocess "device" beside the host route;
+   10.2 object_detection and face_detection with int8 beside bf16 (wall,
+   peak MiB) and visual_analysis with int8 objects and faces (K1, K2
+   launched); 10.3 the int8 conv with the most weights on its main-path
+   input: int8 activations, scales and int32 sums card == CPU, ms beside
+   the bf16 conv; 10.4 object_detection with data_parallel true on the one
+   card (rows equal the plain task's) and a DataParallelDetector over
+   [cuda:0, cuda:0] (two K2 launches, outputs equal to the plain detect on
+   each share at fp32; rows against the whole batch at once reported);
+11. `python -m eioku_tpu_torch.cli finetune` as a process over phase 5's
+   database of indexed chunks and its seeded MiniLM: 20 steps at batch 16,
+   the first step's loss within FINETUNE_LOSS_RTOL of the same batch on the
+   CPU (fp32, TF32 off), the loss falling, the saved native.npz loaded by
+   load_minilm; ms per step timed in this process;
+12. JSON lines: each slice's results, phase 5's to 11's, each phase's
+   seconds, and {"kernels": [...]} with each kernel's launches in the
+   measured run, max error, kernel / plain / bound / library times (K1's
+   and K2's entries also with their launches in the pass with OCR, through
+   the worker, in phase 9's upload drain and in the int8 pass, K2's with
+   two replicas; K3's with its launches per MiniLM call at S = 512, on the
+   indexing path, in turbo's int8 and bf16 runs, in a speculative batch
+   and in the f16 transcription, and its f16 route's error and times);
+13. the card's name and power limit (nvidia-smi), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits nonzero and
@@ -268,6 +293,9 @@ K3_SHAPE = (4, 20, 1500, 64)  # Whisper large-v3 encoder, batch 4
 K3_MINILM = ((2, 12, 512, 32), (512, 130))  # MiniLM's route: shape, lengths
 K3_CASES = (  # shape, dtype name, causal, lengths
     (K3_SHAPE, "bfloat16", False, None),
+    (K3_SHAPE, "float16", False, None),
+    ((2, 12, 512, 32), "float16", False, (512, 130)),
+    ((2, 2, 130, 64), "float16", True, (0, 100)),
     (K3_SHAPE, "float32", False, None),
     ((2, 4, 200, 64), "float32", True, None),
     ((2, 12, 512, 32), "bfloat16", False, (512, 130)),
@@ -275,6 +303,7 @@ K3_CASES = (  # shape, dtype name, causal, lengths
     ((2, 2, 130, 64), "bfloat16", True, (0, 100)),
 )
 AUDIO_SECONDS, SILENT_WINDOW = 150, 2  # five 30 s windows, window 2 silent
+SAMPLES_PER_WINDOW = 30 * 16000
 WHISPER_CONFIG = {"model": "large-v3", "random_full_size": True,
                   "batch_size": 4, "max_tokens": 224}
 TINY_CONFIG = {"model": "tiny", "language": "en", "compute_dtype": "float32",
@@ -320,6 +349,12 @@ VAD_TOL = 1e-5
 VAD_MARGIN = 1e-4  # activity compared where the probability keeps this far from 0.5
 ECAPA_WINDOWS = 32  # one diarization batch of 1.5 s windows
 ECAPA_COS = 0.99  # ECAPA bf16 vs fp32 embeddings on the card
+# phase 10, detection's options
+LETTERBOX_TOL = 1e-5  # device letterbox fp32 card (TF32 off) vs CPU, values in [0, 1]
+LETTERBOX_CPU_FRAMES = 8  # frames letterboxed on the CPU for that check
+# phase 11, the fine-tune
+FINETUNE_STEPS, FINETUNE_BATCH = 20, 16
+FINETUNE_LOSS_RTOL = 1e-4  # the first step's loss, card (TF32 off) vs CPU, fp32
 
 
 def log(msg: str) -> None:
@@ -407,7 +442,7 @@ def phase_build() -> dict:
     for name in _cuda.KERNELS:
         _cuda.load(name)
     for name, label, entries in (
-            ("flash_attention", "K3's bf16 kernels", ("flash_bf16_hopper",)),
+            ("flash_attention", "K3's bf16 and f16 kernels", ("flash_hopper",)),
             ("nms", "K2's kernels", ("nms_mask_kernel", "nms_scan_kernel"))):
         if name not in built:
             log(f"{label} were built before this run: their ptxas report is not checked")
@@ -562,9 +597,18 @@ def bf16_ulp(x):
     return torch.exp2(e - 7)
 
 
+def f16_ulp(x):
+    """Spacing of f16 values at |x| (11 significant bits; 2^-24 below 2^-14)."""
+    import torch
+
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -14)))
+    return torch.exp2(e - 10)
+
+
 def k3_error(got, want, cancel) -> float:
     """fp32: max abs error. bf16: the largest (error - 1 ulp - 2^-8 *
-    sum_j p_j |v_j|) over elements, <= 0 when within tolerance."""
+    sum_j p_j |v_j|) over elements, <= 0 when within tolerance; f16: the
+    same with 1 f16 ulp and 2^-11 (P rounded to f16's 11 bits)."""
     import torch
 
     if got.dtype != want.dtype:
@@ -572,13 +616,14 @@ def k3_error(got, want, cancel) -> float:
     diff = (got.float() - want.float()).abs()
     if got.dtype == torch.float32:
         return float(diff.max())
-    ulp = bf16_ulp(got.float().abs().maximum(want.float().abs()))
-    return float((diff - ulp - 2.0 ** -8 * cancel).max())
+    top = got.float().abs().maximum(want.float().abs())
+    if got.dtype == torch.float16:
+        return float((diff - f16_ulp(top) - 2.0 ** -11 * cancel).max())
+    return float((diff - bf16_ulp(top) - 2.0 ** -8 * cancel).max())
 
 
 def phase_k3(dev) -> dict:
     import torch
-    import torch.nn.functional as F
 
     from eioku_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -605,45 +650,72 @@ def phase_k3(dev) -> dict:
         err = k3_error(got, want, cancel)
         max_abs = float((got.float() - want.float()).abs().max())
         tol = 2e-5 if dtype == torch.float32 else 0.0
+        bound = "2^-11" if dtype == torch.float16 else "2^-8"
         log(f"K3 flash_attention {list(shape)} {dtype_name} causal={causal} "
             f"lengths={lengths}: max abs err {max_abs:.3e}"
-            + ("" if dtype == torch.float32 else f", excess over 1 ulp + 2^-8 "
+            + ("" if dtype == torch.float32 else f", excess over 1 ulp + {bound} "
                f"sum p|v| {err:.3e}"))
         if not err <= tol:
             raise AssertionError(f"K3 disagrees with its plain version at {shape} "
                                  f"{dtype_name}: {err}")
         if (shape, dtype_name) == (K3_SHAPE, "bfloat16"):
             result["max_abs_err"] = max_abs
-    # timing at the encoder's shape and layout: [B, S, H, D] projections
-    # viewed as [B, H, S, D]; two input sets (2 x 46 MB) cycled past the L2
-    b, h, s_len, d = K3_SHAPE
-    gen = torch.Generator(device=dev).manual_seed(7)
-    sets = [tuple(torch.randn((b, s_len, h, d), generator=gen, device=dev)
-                  .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-            for _ in range(2)]
-    ms = cuda_ms(flash_attention, iters=30, args=sets)
-    plain_ms = cuda_ms(flash_attention_plain, iters=5, warmup=1, args=sets)
-    library_ms = cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, scale=d ** -0.5), iters=30, args=sets)
-    nbytes = 4 * b * h * s_len * d * 2  # q, k, v read once, o written once
-    ops = 4 * b * h * s_len * s_len * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-    result.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": library_ms})
-    log(f"K3 {list(K3_SHAPE)} bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-        f"scaled_dot_product_attention {library_ms:.5f} ms, bound "
-        f"{result['bound_ms']:.5f} ms ({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-        f"{result['bound_ms'] / ms:.1%} of the bound, {ms / library_ms:.3f}x the "
-        f"library time")
-    phase_k3_minilm(dev)
+        if (shape, dtype_name) == (K3_SHAPE, "float16"):
+            result["f16"] = {"max_abs_err": max_abs, "excess_over_tolerance": err}
+    result.update(k3_encoder_times(dev, torch.bfloat16))
+    result["f16"].update(k3_encoder_times(dev, torch.float16))
+    result["minilm"] = {"bf16": phase_k3_minilm(dev, torch.bfloat16),
+                        "f16": phase_k3_minilm(dev, torch.float16)}
     return result
 
 
-def phase_k3_minilm(dev) -> None:
-    """K3 at MiniLM's route, [2, 12, 512, 32] bf16 with lengths [512, 130],
-    against scaled_dot_product_attention with the same key mask. The bound
-    counts what these lengths need: keys and values up to each length."""
+def k3_encoder_times(dev, dtype) -> dict:
+    """K3 at the encoder's shape and layout in `dtype` (bf16 or f16): [B, S,
+    H, D] projections viewed as [B, H, S, D], two input sets (2 x 46 MB)
+    cycled past the L2. The kernel and scaled_dot_product_attention in the
+    same type, back-to-back calls and replayed from a CUDA graph, and the
+    plain version's calls. The bound is the same for both types: the dense
+    f16 peak equals bf16's."""
+    import torch
+    import torch.nn.functional as F
+
+    from eioku_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    b, h, s_len, d = K3_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sets = [tuple(torch.randn((b, s_len, h, d), generator=gen, device=dev)
+                  .to(dtype).transpose(1, 2) for _ in range(3))
+            for _ in range(2)]
+    library = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, scale=d ** -0.5)
+    nbytes = 4 * b * h * s_len * d * 2  # q, k, v read once, o written once
+    ops = 4 * b * h * s_len * s_len * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "plain_ms": cuda_ms(flash_attention_plain, iters=5, warmup=1, args=sets)}
+    name = "bf16" if dtype == torch.bfloat16 else "f16"
+    calls = lambda fn, args: cuda_ms(fn, iters=30, args=args)  # noqa: E731
+    for how, timer in (("calls", calls), ("graph", cuda_graph_ms)):
+        ms, library_ms = timer(flash_attention, args=sets), timer(library, args=sets)
+        out.update({f"{how}_ms": ms, f"{how}_library_ms": library_ms})
+        log(f"K3 {list(K3_SHAPE)} {name} ({how}): kernel {ms:.5f} ms, plain "
+            f"{out['plain_ms']:.5f} ms, scaled_dot_product_attention {name} "
+            f"{library_ms:.5f} ms, bound {out['bound_ms']:.5f} ms ({ops / 1e9:.1f} "
+            f"GFLOP, {nbytes / 1e6:.1f} MB); {out['bound_ms'] / ms:.1%} of the bound, "
+            f"{ms / library_ms:.3f}x the library time")
+    out["ms"], out["library_ms"] = out["calls_ms"], out["calls_library_ms"]
+    return out
+
+
+def phase_k3_minilm(dev, dtype) -> dict:
+    """K3 at MiniLM's route, [2, 12, 512, 32] in `dtype` (bf16 or f16) with
+    lengths [512, 130], against scaled_dot_product_attention with the same
+    key mask. The bound counts what these lengths need: keys and values up
+    to each length."""
     import torch
     import torch.nn.functional as F
 
@@ -654,7 +726,7 @@ def phase_k3_minilm(dev) -> None:
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     mask = (torch.arange(s_len, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     sets = [tuple(torch.randn((b, h, s_len, d), generator=gen, device=dev)
-                  .to(torch.bfloat16) for _ in range(3)) for _ in range(4)]
+                  .to(dtype) for _ in range(3)) for _ in range(4)]
     kernel = lambda q, k, v: flash_attention(q, k, v, lengths=lens)  # noqa: E731
     library = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=mask, scale=d ** -0.5)
@@ -664,12 +736,16 @@ def phase_k3_minilm(dev) -> None:
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     # back-to-back calls (what an eager caller waits for; the host's share
     # shows at this size), then device time from a replayed CUDA graph
+    name = "bf16" if dtype == torch.bfloat16 else "f16"
+    out = {"bound_ms": bound_ms}
     for how, timer in (("calls", cuda_ms), ("graph", cuda_graph_ms)):
         ms, library_ms = timer(kernel, args=sets), timer(library, args=sets)
-        log(f"K3 MiniLM {[b, h, s_len, d]} bf16 lengths {list(lengths)} ({how}): kernel "
+        out.update({f"{how}_ms": ms, f"{how}_library_ms": library_ms})
+        log(f"K3 MiniLM {[b, h, s_len, d]} {name} lengths {list(lengths)} ({how}): kernel "
             f"{ms:.5f} ms, scaled_dot_product_attention (key mask) {library_ms:.5f} ms, "
             f"bound {bound_ms:.5f} ms ({ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); "
             f"{bound_ms / ms:.1%} of the bound, {ms / library_ms:.3f}x the library time")
+    return out
 
 
 CLIP_COLORS = [(200, 40, 40), (40, 200, 40), (40, 40, 220), (220, 220, 60),
@@ -1075,7 +1151,49 @@ def phase_transcription(dev, wav: str) -> dict:
         raise AssertionError(f"random weights must emit no rows, got {out[:3]}")
     return {"launches": launches, "wall_s": wall,
             "audio_s_per_s": AUDIO_SECONDS / wall, "peak_mib": peak_mib,
-            "encoder_calls": len(enc_calls)}
+            "encoder_calls": len(enc_calls),
+            "float16": _transcription_f16(dev, wav, engine, enc_calls, n_layers)}
+
+
+def _transcription_f16(dev, wav: str, engine, enc_calls: list, n_layers: int) -> dict:
+    """4b the same transcription at compute_dtype float16 (faster-whisper's
+    GPU compute type): K3's f16 route in every encoder layer; one encoder
+    output of the random full-width model must be finite in f16."""
+    import torch
+
+    from eioku_tpu_torch.ml import transcribe
+    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from eioku_tpu_torch.models.whisper.model import whisper_encode
+    from eioku_tpu_torch.ops import _cuda
+
+    cfg16 = {**WHISPER_CONFIG, "compute_dtype": "float16"}
+    engine.run_task("transcription", wav, cfg16)  # warm-up: the f16 model
+    enc_calls.clear()
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = engine.run_task("transcription", wav, cfg16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _cuda.launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if launches != n_layers * len(enc_calls) or not enc_calls or out != []:
+        raise AssertionError(f"f16 transcription: K3 {launches} for {len(enc_calls)} "
+                             f"encoder calls of {n_layers} layers, rows {out[:3]}")
+    model, cfg, _ = transcribe._load_model(
+        cfg16["model"], None, "float16", cfg16["random_full_size"], dev)
+    x = torch.zeros(SAMPLES_PER_WINDOW, device=dev)
+    x[:16000] = 0.1
+    enc = whisper_encode(model, log_mel_spectrogram(x[None], n_mels=cfg.n_mels))
+    if enc.dtype != torch.float16 or not bool(torch.isfinite(enc).all()):
+        raise AssertionError(f"f16 encoder output: {enc.dtype}, finite "
+                             f"{bool(torch.isfinite(enc).all())}")
+    log(f"transcription float16: {wall:.3f} s wall, {AUDIO_SECONDS / wall:.2f} "
+        f"audio-s/s, peak {peak:.1f} MiB, K3 {launches} launches for "
+        f"{len(enc_calls)} encoder calls")
+    return {"wall_s": wall, "audio_s_per_s": AUDIO_SECONDS / wall, "peak_mib": peak,
+            "k3_launches": launches, "encoder_calls": len(enc_calls)}
 
 
 def phase_production_decode(dev, wav: str) -> dict:
@@ -3220,6 +3338,353 @@ def phase_api(dev, workdir: str, card: str) -> dict:
             "cli": cli, "card": card}
 
 
+# -- phase 10: detection's options (device letterbox, int8 convs, data parallel) -----
+
+
+def _matched_rows(want: list, got: list, box_px: float = 2.0, conf_tol: float = 0.02) -> int:
+    """Rows of `want` matched one to one in `got` by frame and label, box
+    corners within box_px and confidence within conf_tol."""
+    pool: dict = {}
+    for r in got:
+        p = r["payload"]
+        pool.setdefault((p["frame_number"], p.get("label")), []).append(p)
+    matched = 0
+    for r in want:
+        p = r["payload"]
+        cands = pool.get((p["frame_number"], p.get("label")), [])
+        for i, q in enumerate(cands):
+            bp, bq = p["bounding_box"], q["bounding_box"]
+            if abs(p["confidence"] - q["confidence"]) <= conf_tol and all(
+                    abs(bp[k] - bq[k]) <= box_px for k in ("x", "y", "width", "height")):
+                matched += 1
+                del cands[i]
+                break
+    return matched
+
+
+def _detect_rows(model, images, meta, scale, pads, valid: int) -> list:
+    from eioku_tpu_torch.ml import detection
+    from eioku_tpu_torch.models.yolo.classes import COCO_CLASSES
+    from eioku_tpu_torch.models.yolo.postprocess import detect
+
+    rows: list = []
+    detection.emit_boxes(rows, detection.fetch(detect(model, images, conf_threshold=0.5)),
+                         meta, scale, pads, valid, 1.0, (CLIP_W, CLIP_H), 33, COCO_CLASSES)
+    return rows
+
+
+def _task_run(engine, task: str, clip: str, cfg: dict, label: str) -> tuple[list, dict]:
+    import torch
+
+    from eioku_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    out = engine.run_task(task, clip, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _cuda.launch_counts()
+    rows = {k: len(v) for k, v in out.items()} if isinstance(out, dict) else {task: len(out)}
+    res = {"wall_s": wall, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "rows": rows, "launches": {k: launches[k] for k in VISUAL_KERNELS}}
+    log(f"{label}: {wall:.3f} s wall, peak {res['peak_mib']:.1f} MiB, rows {rows}, "
+        f"launches {res['launches']}")
+    if launches["nms"] < 1:
+        raise AssertionError(f"{label}: K2 never launched")
+    for name, rs in (out.items() if isinstance(out, dict) else [(task, out)]):
+        if name in ("object_detection", "face_detection"):
+            _check_box_rows(rs, f"{label} {name}")
+    return out, res
+
+
+def _letterbox_checks(dev, frames: np.ndarray, valid: int, cache: str) -> dict:
+    """10.1 the device letterbox: fp32 card (TF32 off) vs CPU within
+    LETTERBOX_TOL, and within one uint8 level of the host's cv2 letterbox
+    (cv2 rounds to uint8, with 11-bit fixed-point weights); fp32 YOLOv8n
+    rows from both on the same frames, compared and reported: the inputs
+    differ by up to half a level by design, which moves the near-tie
+    candidates of random weights (hazard b), so the rows are no gate."""
+    import torch
+
+    from eioku_tpu_torch.ml import detection
+    from eioku_tpu_torch.models.yolo.model import YOLOv8, YoloConfig, fold_batchnorm
+    from eioku_tpu_torch.ops import resize
+
+    size = detection.INPUT_SIZE
+    x = torch.from_numpy(frames).to(dev)
+    card = resize.letterbox_resize_normalize(x, size, size)
+    cpu = resize.letterbox_resize_normalize(torch.from_numpy(frames[:LETTERBOX_CPU_FRAMES]),
+                                            size, size)
+    err = float((card[:LETTERBOX_CPU_FRAMES].cpu() - cpu).abs().max())
+    host, scale, pads = detection.letterbox_batch(frames, valid)
+    host_dev = torch.from_numpy(host).to(dev)
+    vs_host = float((card[:valid] - host_dev[:valid].float() / 255.0).abs().max())
+    ms = cuda_ms(lambda: resize.letterbox_resize_normalize(x, size, size), iters=10)
+    host_s = time.perf_counter()
+    detection.letterbox_batch(frames, valid)
+    host_s = time.perf_counter() - host_s
+    geometry = resize.letterbox_geometry(CLIP_H, CLIP_W, size)
+    log(f"device letterbox [{len(frames)}, {CLIP_H}, {CLIP_W}] -> {size}: card vs CPU "
+        f"max abs {err:.3e} (tolerance {LETTERBOX_TOL}), vs cv2 host {vs_host:.4f}; "
+        f"{ms:.3f} ms on the card, {host_s * 1e3:.1f} ms cv2 on the host")
+    if not err <= LETTERBOX_TOL or not vs_host <= 1 / 255 or geometry != (scale, *pads):
+        raise AssertionError(f"device letterbox: {err} vs CPU, {vs_host} vs cv2, "
+                             f"geometry {geometry} vs the host's {(scale, *pads)}")
+    model = fold_batchnorm(YOLOv8(YoloConfig("yolov8n"),
+                                  generator=torch.Generator().manual_seed(0)))
+    model = model.to(dev).eval()  # fp32, TF32 off: rows at one precision
+    meta = [(i * CLIP_FPS, i * 1000) for i in range(valid)]
+    rows_host = _detect_rows(model, host_dev, meta, scale, pads, valid)
+    rows_dev = _detect_rows(model, card, meta, scale, pads, valid)
+    matched = _matched_rows(rows_host, rows_dev)
+    share = matched / max(len(rows_host), len(rows_dev), 1)
+    log(f"fp32 YOLOv8n rows on {valid} frames: host letterbox {len(rows_host)}, device "
+        f"letterbox {len(rows_dev)}, {matched} matched ({share:.1%})")
+    if not rows_host or not rows_dev:
+        raise AssertionError(f"device letterbox rows: {len(rows_host)} / {len(rows_dev)}")
+    return {"card_vs_cpu_max_abs": err, "vs_host_max_abs": vs_host, "ms": ms,
+            "host_cv2_ms": host_s * 1e3, "fp32_rows": [len(rows_host), len(rows_dev)],
+            "fp32_rows_matched": matched}
+
+
+def _int8_conv_checks(dev, cache: str, host: np.ndarray) -> dict:
+    """10.3 the int8 conv with the most weights in YOLOv8n: its int8
+    activations and int32 sums card vs CPU on its main-path input (one
+    detect batch), and its time beside the bf16 conv it replaces."""
+    import torch
+
+    from eioku_tpu_torch.ml import detection
+    from eioku_tpu_torch.models.layers import QuantConv2d
+    from eioku_tpu_torch.models.yolo.postprocess import detect
+    from eioku_tpu_torch.ops import quant
+
+    q_model = detection._load_model("yolov8n", 80, cache, dev, True)
+    f_model = detection._load_model("yolov8n", 80, cache, dev, False)
+    convs = [(n, m) for n, m in q_model.named_modules() if isinstance(m, QuantConv2d)]
+    name, conv = max(convs, key=lambda nm: nm[1].w_q.numel())
+    seen = {}
+    hook = conv.register_forward_pre_hook(lambda mod, args: seen.setdefault("x", args[0]))
+    detect(q_model, torch.from_numpy(host).to(dev), conf_threshold=0.5)
+    hook.remove()
+    x = seen["x"]
+    xq, sx = quant.quant_act(x, dims=(1, 2, 3))
+    xq_cpu, sx_cpu = quant.quant_act(x.cpu(), dims=(1, 2, 3))
+    acc = quant.conv_int32(xq, conv.w_q, conv.stride, conv.dilation)
+    acc_cpu = quant.conv_int32(xq_cpu, conv.w_q.cpu(), conv.stride, conv.dilation)
+    torch.cuda.synchronize()
+    same = (torch.equal(xq.cpu(), xq_cpu) and torch.equal(sx.cpu(), sx_cpu)
+            and torch.equal(acc.cpu(), acc_cpu))
+    fconv = f_model.get_submodule(name)
+    q_ms = cuda_ms(conv, args=((x,),), iters=20)
+    f_ms = cuda_ms(fconv, args=((x,),), iters=20)
+    bytes_q = sum(b.numel() * b.element_size() for b in q_model.buffers())
+    bytes_f = sum(t.numel() * t.element_size()
+                  for t in (*f_model.parameters(), *f_model.buffers()))
+    log(f"int8 conv {name} {list(conv.w_q.shape)} on {list(x.shape)} {x.dtype}: int8 "
+        f"activations, scales and int32 sums card == CPU: {same}; {q_ms:.4f} ms int8, "
+        f"{f_ms:.4f} ms bf16; weights {bytes_q / 2**20:.2f} MiB int8 model, "
+        f"{bytes_f / 2**20:.2f} MiB bf16")
+    if not same:
+        raise AssertionError(f"int8 conv {name}: card and CPU differ")
+    return {"layer": name, "weight_shape": list(conv.w_q.shape), "input": list(x.shape),
+            "int8_ms": q_ms, "bf16_ms": f_ms, "model_mib_int8": bytes_q / 2**20,
+            "model_mib_bf16": bytes_f / 2**20}
+
+
+def _data_parallel_checks(dev, engine, clip: str, host: np.ndarray, plain_rows: list) -> dict:
+    """10.4 data_parallel true on the one card (one replica) against the
+    plain task; a DataParallelDetector over [cuda:0, cuda:0] (the split, K2
+    per share, the gather) against the plain detect run on each share, bit
+    for bit (fp32, TF32 off), and its rows against the plain detect of the
+    whole batch at once (reported: cuDNN takes other kernels for 32 frames
+    than for 64, which reorders the near-tie candidates of random weights,
+    hazard b)."""
+    import torch
+
+    from eioku_tpu_torch.ml import detection
+    from eioku_tpu_torch.models.yolo.classes import COCO_CLASSES
+    from eioku_tpu_torch.models.yolo.model import YOLOv8, YoloConfig, fold_batchnorm
+    from eioku_tpu_torch.models.yolo.postprocess import detect
+    from eioku_tpu_torch.ops import _cuda
+    from eioku_tpu_torch.parallel.inference import DataParallelDetector
+
+    rows, res = _task_run(engine, "object_detection", clip,
+                          {"batch_size": 64, "data_parallel": True},
+                          "object_detection data_parallel=true")
+    if rows != plain_rows:
+        raise AssertionError("data_parallel=true rows differ from the plain task's")
+    model = fold_batchnorm(YOLOv8(YoloConfig("yolov8n"),
+                                  generator=torch.Generator().manual_seed(0)))
+    model = model.to(dev).eval()
+    frames = torch.from_numpy(host).to(dev)
+    half = len(frames) // 2
+    shares = [detect(model, frames[:half], conf_threshold=0.5),
+              detect(model, frames[half:], conf_threshold=0.5)]
+    want = {k: torch.cat([o[k] for o in shares]) for k in shares[0]}
+    whole = detect(model, frames, conf_threshold=0.5)
+    dp = DataParallelDetector(model, [dev, dev])
+    _cuda.reset_launch_counts()
+    got = dp(frames, conf_threshold=0.5)
+    torch.cuda.synchronize()
+    k2 = _cuda.launch_counts()["nms"]
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    meta = [(i, 0) for i in range(len(frames))]
+
+    def rows_of(out):
+        r: list = []
+        detection.emit_boxes(r, detection.fetch(out), meta, 1.0, (0, 0), len(frames),
+                             1.0, (detection.INPUT_SIZE,) * 2, 33, COCO_CLASSES)
+        return r
+
+    rows_dp, rows_whole = rows_of(got), rows_of(whole)
+    share = _matched_rows(rows_whole, rows_dp) / max(len(rows_whole), len(rows_dp), 1)
+    dp_ms = cuda_ms(lambda: dp(frames, conf_threshold=0.5), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: detect(model, frames, conf_threshold=0.5), iters=5, warmup=1)
+    log(f"DataParallelDetector over [{dev}, {dev}]: {k2} K2 launches, equal to the plain "
+        f"detect on each share: {same}; against the whole batch at once {share:.1%} of "
+        f"{len(rows_whole)} rows matched; {dp_ms:.3f} ms against {plain_ms:.3f} ms")
+    if k2 != 2 or not same:
+        raise AssertionError(f"DataParallelDetector: K2 {k2}, equal per share {same}")
+    return {"task_one_card": res, "two_replicas": {
+        "k2_launches": k2, "rows_matched_whole_batch": share, "ms": dp_ms,
+        "plain_ms": plain_ms}}
+
+
+def phase_detection_options(dev, workdir: str, card: str) -> dict:
+    """Phase 10: detection's options on the 60 s clip."""
+    import torch
+
+    from eioku_tpu_torch.ml import video_io
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clip = os.path.join(workdir, "clip.mp4")
+    cache = os.path.join(workdir, "models")
+    batch = next(iter(video_io.iter_frame_batches(clip, batch_size=64,
+                                                  frame_interval_s=1.0)))
+    out = {"letterbox": _letterbox_checks(dev, batch.frames, batch.valid, cache)}
+    from eioku_tpu_torch.ml import detection
+
+    host, _, _ = detection.letterbox_batch(batch.frames, batch.valid)
+    engine = InferenceEngine(model_cache_dir=cache, device=dev)
+    tasks = {}
+    plain, tasks["object_detection"] = _task_run(engine, "object_detection", clip,
+                                                 {"batch_size": 64}, "object_detection")
+    rows, tasks["object_detection_device_letterbox"] = _task_run(
+        engine, "object_detection", clip, {"batch_size": 64, "preprocess": "device"},
+        "object_detection preprocess=device")
+    share = _matched_rows(plain, rows) / max(len(plain), len(rows), 1)
+    tasks["object_detection_device_letterbox"]["bf16_rows_matched_share"] = share
+    log(f"bf16 task rows, device letterbox against host: {share:.1%} matched (bf16 "
+        f"near-ties reorder, hazard b: the fp32 comparison above is the check)")
+    for task, extra in (("object_detection", {"batch_size": 64}),
+                        ("face_detection", {**VISUAL_CONFIG["face_detection"],
+                                            "batch_size": 64})):
+        if task == "face_detection":
+            _task_run(engine, task, clip, extra, f"{task} bf16 warm-up")
+            _, tasks[task] = _task_run(engine, task, clip, extra, f"{task} bf16")
+        _task_run(engine, task, clip, {**extra, "int8": True}, f"{task} int8 warm-up")
+        _, tasks[f"{task}_int8"] = _task_run(engine, task, clip, {**extra, "int8": True},
+                                             f"{task} int8")
+    int8_pass = {**VISUAL_CONFIG,
+                 "object_detection": {**VISUAL_CONFIG["object_detection"], "int8": True},
+                 "face_detection": {**VISUAL_CONFIG["face_detection"], "int8": True}}
+    res_pass, tasks["visual_analysis_int8"] = _task_run(engine, "visual_analysis", clip,
+                                                        int8_pass, "visual_analysis int8")
+    _check_face_rows(res_pass["face_detection"], "visual int8")
+    if tasks["visual_analysis_int8"]["launches"]["scene_diff"] < 1:
+        raise AssertionError("visual_analysis int8: K1 never launched")
+    out["int8_conv"] = _int8_conv_checks(dev, cache, host)
+    out["data_parallel"] = _data_parallel_checks(dev, engine, clip, host, plain)
+    out["tasks"] = tasks
+    out["card"] = card
+    return out
+
+
+# -- phase 11: the embedder's fine-tune through the CLI, on phase 5's corpus ------------
+
+
+def phase_finetune(dev, workdir: str, card: str) -> dict:
+    """Phase 11: `python -m eioku_tpu_torch.cli finetune` as its own process on
+    phase 5's database of indexed chunks and its seeded MiniLM; the first
+    step's loss against the same batch on the CPU (fp32, TF32 off), the
+    loss falling, the saved native.npz loaded by load_minilm; s per step in
+    this process (the same step, timed apart)."""
+    import random
+
+    import torch
+
+    from eioku_tpu_torch.models.embed.minilm import load_minilm
+    from eioku_tpu_torch.models.embed.tokenizer import WordPieceTokenizer
+    from eioku_tpu_torch.parallel.finetune import crop_pair
+    from eioku_tpu_torch.parallel.train import adamw, info_nce_loss, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.path.join(workdir, "semantic")
+    cache = os.path.join(root, "models")
+    out_cache = os.path.join(workdir, "finetuned")
+    save_to = os.path.join(out_cache, "minilm-l6", "native.npz")
+    cfg_path = os.path.join(workdir, "finetune.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"paths": [], "model_cache_dir": cache, "semantic_search": False,
+                   "visual_search": False}, f)
+    cmd = [sys.executable, "-m", "eioku_tpu_torch.cli", "--db", f"sqlite:///{root}/s.db",
+           "--config", cfg_path, "finetune", "--steps", str(FINETUNE_STEPS),
+           "--batch-size", str(FINETUNE_BATCH), "--save-to", save_to]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=_service_env(), text=True, capture_output=True, timeout=600)
+    wall = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(f"cli finetune: rc {r.returncode}: {r.stderr[-3000:]}")
+    stats = json.loads(r.stdout)
+    # the first batch, as the command drew it, through the same model on the CPU
+    import sqlite3
+
+    con = sqlite3.connect(os.path.join(root, "s.db"))
+    texts = [t for (t,) in con.execute("SELECT text FROM embedding_chunks")
+             if len(t.split()) >= 4]
+    con.close()
+    rng = random.Random(0)
+    pairs = [crop_pair(rng.choice(texts), rng) for _ in range(FINETUNE_BATCH)]
+    tok = WordPieceTokenizer.from_cache_dir(cache, max_len=128)
+    batch = [torch.from_numpy(x) for x in (*tok.encode_batch([a for a, _ in pairs]),
+                                           *tok.encode_batch([p for _, p in pairs]))]
+    cpu_model, _, _ = load_minilm(cache)
+    with torch.no_grad():
+        cpu_loss = float(info_nce_loss(cpu_model, *batch))
+    rel = abs(stats["first_loss"] - cpu_loss) / abs(cpu_loss)
+    tuned, _, pretrained = load_minilm(out_cache, device=dev)
+    moved = float((tuned.embeddings.word_embeddings.weight.cpu()
+                   - cpu_model.embeddings.word_embeddings.weight).abs().max())
+    # s per step: the same step on the card in this process, after a warm-up
+    model, _, _ = load_minilm(cache, device=dev)
+    step, _ = make_train_step(model, adamw(model, 1e-5))
+    on_card = [b.to(dev) for b in batch]
+    step(*on_card)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        step(*on_card)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t) / 5
+    log(f"cli finetune: {stats['steps']} steps at batch {FINETUNE_BATCH} over "
+        f"{stats['chunks']} chunks in {wall:.2f} s (the process); loss "
+        f"{stats['first_loss']:.5f} -> {stats['last_loss']:.5f}; the first step's loss "
+        f"on the CPU {cpu_loss:.5f} (relative {rel:.2e}); {per_step * 1e3:.1f} ms per "
+        f"step on the card; the saved checkpoint loads (pretrained {pretrained}), "
+        f"token embeddings moved up to {moved:.2e}")
+    if not rel <= FINETUNE_LOSS_RTOL or not stats["last_loss"] < stats["first_loss"] \
+            or not pretrained or not moved > 0 or stats["checkpoint"] != save_to:
+        raise AssertionError(f"cli finetune: {stats}, CPU first loss {cpu_loss}, "
+                             f"pretrained {pretrained}, moved {moved}")
+    return {"stats": stats, "process_s": wall, "cpu_first_loss": cpu_loss,
+            "first_loss_rel_err": rel, "s_per_step": per_step, "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -3264,6 +3729,8 @@ def main() -> int:
         clip = timed("7 CLIP", phase_clip, dev, workdir, card)
         audio = timed("8 audio", phase_audio, dev, wav, workdir, card)
         api = timed("9 API", phase_api, dev, workdir, card)
+        det = timed("10 detection options", phase_detection_options, dev, workdir, card)
+        ft = timed("11 fine-tune", phase_finetune, dev, workdir, card)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
@@ -3291,8 +3758,14 @@ def main() -> int:
          "launches_turbo_int8": audio["int8_transcription"]["int8"]["k3_launches"],
          "launches_turbo_bf16": audio["int8_transcription"]["bfloat16"]["k3_launches"],
          "launches_speculative_batch": audio["whisper_options"]["draft_model"]["k3_launches"],
+         "launches_f16_transcription": tr["float16"]["k3_launches"],
          **k3},
     ]
+    kernels[1]["launches_data_parallel_two_replicas"] = \
+        det["data_parallel"]["two_replicas"]["k2_launches"]
+    kernels[1]["launches_visual_int8"] = det["tasks"]["visual_analysis_int8"]["launches"]["nms"]
+    kernels[0]["launches_visual_int8"] = \
+        det["tasks"]["visual_analysis_int8"]["launches"]["scene_diff"]
     print(json.dumps({"slice": {k: v for k, v in sl.items()
                                 if k not in ("launches", "k2_faces", "k2_objects",
                                              "cpu_scenes")}}))
@@ -3303,6 +3776,7 @@ def main() -> int:
     print(json.dumps({"ocr": ocr, "clip": clip}))
     print(json.dumps({"audio": audio}))
     print(json.dumps({"api": api}))
+    print(json.dumps({"detection_options": det, "finetune": ft}))
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

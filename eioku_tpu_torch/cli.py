@@ -5,12 +5,13 @@ Commands: `tasks` (tasks joined with their queue jobs), `videos`, `resync`
 `search` (semantic search from the shell), `discover`, `export-clip`,
 `people`, `import-eioku` (migrate a reference eioku database), `stats`,
 `export-dump` / `import-dump` (library backup and restore) and
-`extract-audio`.
+`extract-audio` and `finetune` (fine-tune the embedder on the indexed
+transcripts, on one card: parallel/finetune.py).
 
-The context's semantic and visual indexes run on CUDA; EIOKU_FORCE_CPU=1 puts
-them on the CPU instead. With semantic_search or visual_search on (both are
-by default) and no card, every command raises at start. `finetune` is not
-ported: training on the GPU is ROADMAP.md's Queue 1 item 9.
+The context's semantic and visual indexes and the fine-tune run on CUDA;
+EIOKU_FORCE_CPU=1 puts them on the CPU instead. With semantic_search or
+visual_search on (both are by default) and no card, every command raises at
+start.
 
 Usage: python -m eioku_tpu_torch.cli <command> [--db URL] [--config PATH]
 """
@@ -188,9 +189,14 @@ def cmd_discover(args) -> int:
 
 
 def cmd_finetune(args) -> int:
-    raise SystemExit("eioku: finetune is not ported yet: fine-tuning the "
-                     "embedder on the GPU waits for the port's training "
-                     "(ROADMAP.md, Queue 1 item 9: multi-GPU and training)")
+    from eioku_tpu_torch.parallel.finetune import finetune_embedder
+
+    ctx = _ctx(args)
+    stats = finetune_embedder(ctx, steps=args.steps, batch_size=args.batch_size,
+                              lr=args.lr, model_parallel=args.model_parallel,
+                              save_to=args.save_to)
+    print(json.dumps(stats, indent=2))
+    return 0
 
 
 def cmd_extract_audio(args) -> int:

@@ -13,13 +13,15 @@
 // block_q - 1, the Pallas kernel's below_diag test). Any S works; D is 32 or
 // 64.
 //
-// Bound at the Whisper encoder's shape [4, 20, 1500, 64] bf16:
-// 4*B*H*S^2*D = 46.1 GFLOP, 46.6 us at the 989 TFLOP/s dense bf16 peak, against
+// Bound at the Whisper encoder's shape [4, 20, 1500, 64] bf16 or f16:
+// 4*B*H*S^2*D = 46.1 GFLOP, 46.6 us at the 989 TFLOP/s dense bf16 and f16 peak, against
 // 61 MB (q, k, v read once, o written once) and 18 us of bytes: bound by
 // operations. Its 1.8e8 exponentials take about as long again on the SFUs
 // (16 MUFU.EX2 per SM per clock), so they have to overlap the products.
 //
-// bf16 (`flash_bf16_hopper`), designed for Hopper:
+// bf16 and f16 (`flash_hopper<T, D>`, one body templated on the element
+// type T: the wgmma instruction names it, the TMA's tensor maps and the
+// packing of P and of the output round to it), designed for Hopper:
 // - one block of 512 threads per (192-row query tile, head, batch row):
 //   warpgroup 0 is the producer (setmaxnreg.dec to 32 registers; one thread
 //   issues the TMA loads), warpgroups 1-3 are consumers (setmaxnreg.inc to
@@ -36,7 +38,7 @@
 //   or 64 B (D = 32), matched by the wgmma shared-memory descriptors;
 // - wgmma for both products with fp32 accumulation: S = Q K^T as
 //   m64n128k16 from shared memory (both K-major); O += P V as m64nDk16 with
-//   A = P from registers (the S accumulator fragment packed to bf16 pairs is
+//   A = P from registers (the S accumulator fragment packed to T pairs is
 //   exactly the A fragment) and B = V from shared memory, transposed (V's
 //   tile is keys x D, D contiguous);
 // - the softmax in the exp2 domain: x = s * (scale * log2 e), MASK_VALUE set
@@ -47,27 +49,32 @@
 // - intra-warpgroup overlap: each iteration issues tile t's Q K^T and tile
 //   t-1's P V back to back, waits for the first, and runs tile t's softmax
 //   while P V still runs on the tensor cores;
-// - epilogue out = acc * (1 / l), 0 where l == 0, rounded once to bf16 and
+// - epilogue out = acc * (1 / l), 0 where l == 0, rounded once to T and
 //   stored through the output's strides.
-// Numerics: P is rounded to bf16 once before P V (the recipe of
+// Numerics: P is rounded to T once before P V (the recipe of
 // scaled_dot_product_attention's own kernels); l is summed from the fp32 p
-// before rounding. Q K^T on bf16 inputs has exact products. Each bf16
+// before rounding. Q K^T on 16-bit inputs has exact products. Each bf16
 // output therefore lies within 1 bf16 ulp of the plain version (fp32 from
 // the same inputs, rounded once) plus 2^-8 * sum_j p_j |v_j|: 2^-9 for the
 // rounding of each p, doubled for the order of the fp32 sums and exp2's
-// approximation. That is the tolerance the tests and chip_smoke.py hold it
-// to.
+// approximation. f16 keeps 11 significant bits, so each f16 output lies
+// within 1 f16 ulp plus 2^-11 * sum_j p_j |v_j| (the rounding of each p;
+// the fp32 sums' order and exp2's error are three orders below it). Those
+// are the tolerances the tests and chip_smoke.py hold it to.
 //
 // fp32 (`flash_simt`): one block of 64 threads per 64-row query tile, one
 // query row each, q and acc in registers, fp32 FMAs throughout (no TF32), so
 // it holds 2e-5 absolute against the plain version like the Pallas kernel's
-// own tests. It serves compute_dtype float32, not the bf16 main path.
+// own tests. It serves compute_dtype float32, not the 16-bit main paths.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -94,7 +101,7 @@ __device__ __forceinline__ int valid_keys(const int* lengths, int b, int skv) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on Hopper: TMA, mbarriers, wgmma
+// bf16 and f16 on Hopper: TMA, mbarriers, wgmma
 
 constexpr int kBlock = 128;  // keys per KV tile
 constexpr int kStages = 3;   // K/V ring depth
@@ -197,70 +204,97 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #define EIOKU_F16(a, i) \
   EIOKU_F4(a, i), EIOKU_F4(a, i + 4), EIOKU_F4(a, i + 8), EIOKU_F4(a, i + 12)
 
+// The three products, for T = __nv_bfloat16 (".bf16") or __half (".f16"):
+// the instruction strings differ only in the input type's name
+#define EIOKU_WGMMA_SS(TY)                                                              \
+  asm volatile(                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                      \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                   \
+      : EIOKU_F16(d, 0), EIOKU_F16(d, 16), EIOKU_F16(d, 32), EIOKU_F16(d, 48)           \
+      : "l"(da), "l"(db), "r"(accumulate))
+#define EIOKU_WGMMA_N64_RS(TY)                                                          \
+  asm volatile(                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                     \
+      : EIOKU_F16(d, 0), EIOKU_F16(d, 16)                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define EIOKU_WGMMA_N32_RS(TY)                                                          \
+  asm volatile(                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "        \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                     \
+      : EIOKU_F16(d, 0)                                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory, K-major
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                     uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : EIOKU_F16(d, 0), EIOKU_F16(d, 16), EIOKU_F16(d, 32), EIOKU_F16(d, 48)
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kIsHalf<T>)
+    EIOKU_WGMMA_SS("f16");
+  else
+    EIOKU_WGMMA_SS("bf16");
 }
 
 // d[64 x 64] += A[64 x 16] (registers) B[16 x 64] (shared memory, N-major)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t* a,
                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : EIOKU_F16(d, 0), EIOKU_F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kIsHalf<T>)
+    EIOKU_WGMMA_N64_RS("f16");
+  else
+    EIOKU_WGMMA_N64_RS("bf16");
 }
 
 // d[64 x 32] += A[64 x 16] (registers) B[16 x 32] (shared memory, N-major)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t* a,
                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : EIOKU_F16(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kIsHalf<T>)
+    EIOKU_WGMMA_N32_RS("f16");
+  else
+    EIOKU_WGMMA_N32_RS("bf16");
 }
 
+#undef EIOKU_WGMMA_N32_RS
+#undef EIOKU_WGMMA_N64_RS
+#undef EIOKU_WGMMA_SS
 #undef EIOKU_F16
 #undef EIOKU_F4
 
 // S = Q K^T for this warpgroup's 64 rows and one 128-key tile: D / 16 steps
 // of 16 along the head dim, each 32 B further into the swizzled rows
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q_desc,
                                          uint64_t k_desc) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_m64n128k16_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    wgmma_m64n128k16_ss<T>(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
 }
 
 // O += P V over one 128-key tile: 8 steps of 16 keys, each 16 V rows further
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[32],
                                          uint64_t v_desc) {
   constexpr uint64_t kStep = (16 * 2 * D) >> 4;  // 16 rows of V, in 16 B units
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     if constexpr (D == 64)
-      wgmma_m64n64k16_rs(o, p + 4 * j, v_desc + j * kStep);
+      wgmma_m64n64k16_rs<T>(o, p + 4 * j, v_desc + j * kStep);
     else
-      wgmma_m64n32k16_rs(o, p + 4 * j, v_desc + j * kStep);
+      wgmma_m64n32k16_rs<T>(o, p + 4 * j, v_desc + j * kStep);
   }
 }
 
@@ -270,10 +304,22 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// two fp32 -> one register of two bf16, `lo` in bits 0-15
+// two fp32 -> one register of two bf16 or two f16 (round to nearest), `lo`
+// in bits 0-15
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
 }
 
 // The accumulator fragment of a 64 x 128 wgmma: thread (warp w, lane l) holds
@@ -336,23 +382,24 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   }
 }
 
-// P rounded to bf16 once: keys 16j..16j+15 of the S fragment are the A
+// P rounded to T once: keys 16j..16j+15 of the S fragment are the A
 // fragment of P V's step j
+template <typename T>
 __device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&s)[64]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) p[4 * j + r] = pack_bf16(s[8 * j + 2 * r], s[8 * j + 2 * r + 1]);
+    for (int r = 0; r < 4; ++r) p[4 * j + r] = pack2<T>(s[8 * j + 2 * r], s[8 * j + 2 * r + 1]);
   }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bf16_hopper(const __grid_constant__ CUtensorMap tm_q,
-                  const __grid_constant__ CUtensorMap tm_k,
-                  const __grid_constant__ CUtensorMap tm_v,
-                  __nv_bfloat16* __restrict__ o, const int* __restrict__ lengths, int sq,
-                  int skv, Strides os, float scale_log2, bool causal) {
+flash_hopper(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, E* __restrict__ o,
+             const int* __restrict__ lengths, int sq, int skv, Strides os,
+             float scale_log2, bool causal) {
   using T = HopperTile<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) &
@@ -447,12 +494,12 @@ flash_bf16_hopper(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(k_full(0), 0);
       fence_regs(s);
       wg_fence();
-      issue_qk<D>(s, q_desc, k_desc(0));
+      issue_qk<E, D>(s, q_desc, k_desc(0));
       wg_commit();
       wg_wait<0>();
       fence_regs(s);
       softmax(0);
-      pack_p(p, s);
+      pack_p<E>(p, s);
     }
     for (int t = 1; t < n_tiles; ++t) {
       const int st = t % kStages, prev = (t - 1) % kStages;
@@ -462,9 +509,9 @@ flash_bf16_hopper(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(o_acc);
       fence_regs(p);
       wg_fence();
-      issue_qk<D>(s, q_desc, k_desc(st));  // tile t's scores
+      issue_qk<E, D>(s, q_desc, k_desc(st));  // tile t's scores
       wg_commit();
-      issue_pv<D>(o_acc, p, v_desc(prev));  // tile t-1's P V, still running ...
+      issue_pv<E, D>(o_acc, p, v_desc(prev));  // tile t-1's P V, still running ...
       wg_commit();
       wg_wait<1>();
       fence_regs(s);
@@ -480,7 +527,7 @@ flash_bf16_hopper(const __grid_constant__ CUtensorMap tm_q,
         o_acc[4 * n + 2] *= alpha[1];
         o_acc[4 * n + 3] *= alpha[1];
       }
-      pack_p(p, s);
+      pack_p<E>(p, s);
     }
     if (n_tiles > 0) {
       const int last = (n_tiles - 1) % kStages;
@@ -488,7 +535,7 @@ flash_bf16_hopper(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(o_acc);
       fence_regs(p);
       wg_fence();
-      issue_pv<D>(o_acc, p, v_desc(last));
+      issue_pv<E, D>(o_acc, p, v_desc(last));
       wg_commit();
       wg_wait<0>();
       fence_regs(o_acc);
@@ -496,7 +543,7 @@ flash_bf16_hopper(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // out = acc / l, zero where l == 0
-    __nv_bfloat16* op = o + b * os.b + h * os.h;
+    E* op = o + b * os.b + h * os.h;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -504,18 +551,18 @@ flash_bf16_hopper(const __grid_constant__ CUtensorMap tm_q,
       const int row = row0 + 8 * i;
       if (row >= sq) continue;
       const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-      __nv_bfloat16* orow = op + row * os.s + lane_col;
+      E* orow = op + row * os.s + lane_col;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-            pack_bf16(o_acc[4 * n + 2 * i] * inv, o_acc[4 * n + 2 * i + 1] * inv);
+            pack2<E>(o_acc[4 * n + 2 * i] * inv, o_acc[4 * n + 2 * i + 1] * inv);
     }
   }
 }
 
-// A 4-D tensor map (D, H, S, B) over a bf16 [B, H, S, D] view with element
-// strides st = (b, h, s), D dense; boxes of one head's `rows` rows
-template <int D>
+// A 4-D tensor map (D, H, S, B) over a bf16 or f16 [B, H, S, D] view with
+// element strides st = (b, h, s), D dense; boxes of one head's `rows` rows
+template <typename E, int D>
 int encode_map(CUtensorMap* map, const void* ptr, int h, int s, int b,
                const long long* st, int rows) {
   const cuuint64_t row = D * 2;
@@ -527,31 +574,33 @@ int encode_map(CUtensorMap* map, const void* ptr, int h, int s, int b,
                            b > 1 ? static_cast<cuuint64_t>(st[0]) * 2 : row};
   cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1, static_cast<cuuint32_t>(rows), 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType type =
+      kIsHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+      map, type, 4, const_cast<void*>(ptr), dims, strides,
       box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <typename E, int D>
 int launch_hopper(const void* q, const void* k, const void* v, void* o,
                   const void* lengths, int b, int h, int sq, int skv,
                   const long long* st, float scale, int causal, void* stream) {
   using T = HopperTile<D>;
   CUtensorMap mq, mk, mv;
-  int err = encode_map<D>(&mq, q, h, sq, b, st, kBlockQ);
-  if (err == 0) err = encode_map<D>(&mk, k, h, skv, b, st + 3, kBlock);
-  if (err == 0) err = encode_map<D>(&mv, v, h, skv, b, st + 6, kBlock);
+  int err = encode_map<E, D>(&mq, q, h, sq, b, st, kBlockQ);
+  if (err == 0) err = encode_map<E, D>(&mk, k, h, skv, b, st + 3, kBlock);
+  if (err == 0) err = encode_map<E, D>(&mv, v, h, skv, b, st + 6, kBlock);
   if (err != 0) return err;
-  auto kernel = flash_bf16_hopper<D>;
+  auto kernel = flash_hopper<E, D>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
   kernel<<<grid, kThreads, T::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<const int*>(lengths), sq,
+      mq, mk, mv, static_cast<E*>(o), static_cast<const int*>(lengths), sq,
       skv, Strides{st[9], st[10], st[11]}, scale * kLog2e, causal != 0);
   return static_cast<int>(cudaGetLastError());
 }
@@ -652,8 +701,9 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
 
 // q [b, h, sq, d], k and v [b, h, skv, d], o [b, h, sq, d] on the device, each
 // addressed through element strides (batch, head, seq) with d dense; for bf16
-// every base pointer must be 16-byte aligned and every stride a multiple of 8
-// elements (the TMA's rules; the wrapper checks). dtype: 0 fp32, 1 bf16.
+// and f16 every base pointer must be 16-byte aligned and every stride a
+// multiple of 8 elements (the TMA's rules; the wrapper checks). dtype: 0
+// fp32, 1 bf16, 2 f16.
 // lengths: int32 [b] valid KV lengths, or null for all. strides: 12 values,
 // (b, h, s) of q, k, v, o. Launches on `stream`, does not synchronise;
 // returns cudaGetLastError() (cudaErrorInvalidValue if a tensor map is
@@ -664,13 +714,18 @@ extern "C" int eioku_flash_attention(const void* q, const void* k, const void* v
                                      float scale, int causal, int dtype, void* stream) {
   if (b < 1 || h < 1 || sq < 1 || skv < 1 || h > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) {
+  if (dtype == 1 || dtype == 2) {
+    const bool half = dtype == 2;
     if (d == 64)
-      return launch_hopper<64>(q, k, v, o, lengths, b, h, sq, skv, strides, scale, causal,
-                               stream);
+      return half ? launch_hopper<__half, 64>(q, k, v, o, lengths, b, h, sq, skv, strides,
+                                              scale, causal, stream)
+                  : launch_hopper<__nv_bfloat16, 64>(q, k, v, o, lengths, b, h, sq, skv,
+                                                     strides, scale, causal, stream);
     if (d == 32)
-      return launch_hopper<32>(q, k, v, o, lengths, b, h, sq, skv, strides, scale, causal,
-                               stream);
+      return half ? launch_hopper<__half, 32>(q, k, v, o, lengths, b, h, sq, skv, strides,
+                                              scale, causal, stream)
+                  : launch_hopper<__nv_bfloat16, 32>(q, k, v, o, lengths, b, h, sq, skv,
+                                                     strides, scale, causal, stream);
   } else if (dtype == 0) {
     if (d == 64)
       return launch_simt<64>(q, k, v, o, lengths, b, h, sq, skv, strides, scale, causal,

@@ -19,7 +19,9 @@ to each consumer:
     resize to 384x640, I420 upload) shared by every configured language,
     then box extraction on the host and one CRNN pass per recognizer group.
 
-Results are returned per task type.
+Results are returned per task type. Of the detection options the pass
+reads `int8` (objects, faces and the face rider); like the JAX pass it
+ignores `preprocess` and `data_parallel`.
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ from eioku_tpu_torch.ml.detection import (
     _assign_face_clusters,
     _load_model,
     attach_face_embeddings,
-    check_supported,
     emit_boxes,
     face_payload,
     fetch,
@@ -156,8 +157,9 @@ class _DetectionConsumer:
                  conf: float, step: int, batch_size: int, cache_dir,
                  payload_builder, frame_ms: int, src_wh: tuple[int, int],
                  coord_scale: float, device: torch.device,
-                 places: tuple | None = None, face_rider: dict | None = None):
-        self.model = _load_model(model_name, num_classes, cache_dir, device)
+                 places: tuple | None = None, face_rider: dict | None = None,
+                 int8: bool = False):
+        self.model = _load_model(model_name, num_classes, cache_dir, device, int8)
         self.class_names = class_names
         self.device = device
         self.conf = conf
@@ -384,9 +386,6 @@ def run_visual_analysis(video_path: str, config: dict,
     fcfg = config.get("face_detection")
     pcfg = config.get("place_classification")
     xcfg = config.get("ocr")
-    for sub in (ocfg, fcfg):
-        if sub is not None:
-            check_supported(sub)
     dev = resolve_device(device)
 
     info = video_io.probe(video_path)
@@ -445,7 +444,7 @@ def run_visual_analysis(video_path: str, config: dict,
         and bool(config.get("fuse_faces", True))
     face_rider = {
         "model": _load_model(fcfg.get("model", "yolov8n-face"), 1,
-                             model_cache_dir, dev),
+                             model_cache_dir, dev, bool(fcfg.get("int8", False))),
         "conf": face_conf, "step": face_step, "payload_builder": face_payload,
         "results": []} if fuse_faces else None
     objects = _DetectionConsumer(
@@ -454,13 +453,14 @@ def run_visual_analysis(video_path: str, config: dict,
         int(ocfg.get("batch_size", 64)), model_cache_dir, object_payload,
         frame_ms, src_wh, coord_scale, dev,
         places=(place_model, place_labels, place_topk) if fuse_places else None,
-        face_rider=face_rider) if ocfg is not None else None
+        face_rider=face_rider, int8=bool(ocfg.get("int8", False))) \
+        if ocfg is not None else None
     if fuse_places:
         place_step = 0  # the standalone places path below stays idle
     faces = _DetectionConsumer(
         fcfg.get("model", "yolov8n-face"), 1, [], face_conf, face_step,
         int(fcfg.get("batch_size", 64)), model_cache_dir, face_payload,
-        frame_ms, src_wh, coord_scale, dev) \
+        frame_ms, src_wh, coord_scale, dev, int8=bool(fcfg.get("int8", False))) \
         if fcfg is not None and not fuse_faces else None
     ocr = _OcrConsumer(
         xcfg, substep(float(xcfg.get("frame_interval_s", 2.0))),

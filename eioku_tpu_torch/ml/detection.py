@@ -4,9 +4,17 @@ eioku_tpu/ml/detection.py).
 Objects: yolov8n, conf 0.5, every 1 s. Faces: yolov8n-face (one class), conf
 0.7, every 3 s, label "face", a cluster id from cross-frame IoU tracking and,
 with {"embeddings": true}, an L2-normalised ArcFace identity embedding per
-face. Frames are letterboxed on the host into fixed 640x640 batches and the
-whole forward + decode + top-K + NMS graph runs on the device per batch;
-boxes are un-letterboxed back to source pixels on the host.
+face. Frames are letterboxed into fixed 640x640 batches and the whole
+forward + decode + top-K + NMS graph runs on the device per batch; boxes are
+un-letterboxed back to source pixels on the host.
+
+Options, as in the JAX package: `preprocess` "host" (cv2 letterbox in the
+decode thread, the default) or "device" (ops/resize.py's interpolation
+products on the device, fp32 frames in [0, 1]); `int8` (per-output-channel
+int8 conv weights, dynamic per-image activation scales: ops/quant.py);
+`data_parallel` "auto" (the default: split each batch over the visible
+cards when there is more than one), true (over every visible card, so one
+card on a one-card host) or false (the plain path).
 
 Checkpoints: `{model}.pt` (ultralytics format) and `arcface_r18.pth`
 (insightface layout) under model_cache_dir, else random-init weights from a
@@ -24,11 +32,13 @@ import numpy as np
 import torch
 
 from eioku_tpu_torch.ml import video_io
-from eioku_tpu_torch.ml.engine import ModelNotAvailable
+from eioku_tpu_torch.models.layers import quantize_convs
 from eioku_tpu_torch.models.yolo.classes import COCO_CLASSES
 from eioku_tpu_torch.models.yolo.model import YOLOv8, YoloConfig, fold_batchnorm
 from eioku_tpu_torch.models.yolo.postprocess import detect
 from eioku_tpu_torch.models.yolo.weights import load_yolo_checkpoint
+from eioku_tpu_torch.ops.resize import letterbox_geometry, letterbox_resize_normalize
+from eioku_tpu_torch.parallel.inference import DataParallelDetector
 from eioku_tpu_torch.utils import progress
 from eioku_tpu_torch.utils.device import compute_dtype, resolve_device
 
@@ -52,23 +62,12 @@ def letterbox_batch(frames: np.ndarray, valid: int, size: int = INPUT_SIZE
     return out, scale, (pad_x, pad_y)
 
 
-def check_supported(config: dict) -> None:
-    """Raise ModelNotAvailable for detection options the port does not run."""
-    if config.get("preprocess", "host") == "device":
-        raise ModelNotAvailable("object detection preprocess='device' is not "
-                                "ported to eioku_tpu_torch")
-    if config.get("int8"):
-        raise ModelNotAvailable("int8 detection is not ported to eioku_tpu_torch")
-    if config.get("data_parallel", "auto") is True:
-        raise ModelNotAvailable("data-parallel detection is not ported to "
-                                "eioku_tpu_torch (single device only)")
-
-
-@lru_cache(maxsize=4)
+@lru_cache(maxsize=8)
 def _load_model(model_name: str, num_classes: int, cache_dir: str | None,
-                device: torch.device) -> YOLOv8:
-    """Checkpoint, else random init (seed 0), then BN fold; on `device` in
-    its compute type, in eval mode."""
+                device: torch.device, int8: bool = False) -> YOLOv8:
+    """Checkpoint, else random init (seed 0), then BN fold and, with int8,
+    the convs quantized from the fp32 weights (as the JAX package quantizes
+    its fp32 tree); on `device` in its compute type, in eval mode."""
     cfg = YoloConfig(variant=model_name.replace("-face", ""),
                      num_classes=num_classes)
     ckpt = os.path.join(cache_dir, f"{model_name}.pt") if cache_dir else None
@@ -81,7 +80,30 @@ def _load_model(model_name: str, num_classes: int, cache_dir: str | None,
         log.warning("no checkpoint found; using random-init weights",
                     extra={"model": model_name, "cache_dir": cache_dir})
     fold_batchnorm(model)
+    if int8:
+        # an opt-in for the weights' memory, as in the JAX package: it halves
+        # them; each conv runs slower than bf16 on the card, and the task's
+        # peak memory stands beside bf16's in PERF.md
+        quantize_convs(model)
+        log.info("int8-quantized detector", extra={"model": model_name})
     return model.to(device=device, dtype=compute_dtype(device)).eval()
+
+
+def data_parallel_devices(device: torch.device) -> list[torch.device]:
+    """Every visible card for a CUDA device, else the device itself."""
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@lru_cache(maxsize=4)
+def _dp_detector(model_name: str, num_classes: int, cache_dir: str | None,
+                 device: torch.device, int8: bool = False) -> DataParallelDetector:
+    """A DataParallelDetector over every visible card (or `device` itself
+    off the card)."""
+    return DataParallelDetector(
+        _load_model(model_name, num_classes, cache_dir, device, int8),
+        data_parallel_devices(device))
 
 
 def object_payload(label: str, conf: float, box: dict, frame: int) -> dict:
@@ -138,12 +160,18 @@ def _run_detection(video_path: str, config: dict, *, model_name: str,
     """The detection task loop shared by objects and faces. batch_hook(batch,
     rows) runs after each batch's rows are built, while its decoded frames
     are still in memory."""
-    check_supported(config)
     conf = float(config.get("confidence_threshold", default_conf))
     interval = float(config.get("frame_interval_s", default_interval))
     batch_size = int(config.get("batch_size", 32))
     top_k = int(config.get("top_k", 256))
-    model = _load_model(model_name, num_classes, model_cache_dir, device)
+    preprocess = config.get("preprocess", "host")
+    int8 = bool(config.get("int8", False))
+    model = _load_model(model_name, num_classes, model_cache_dir, device, int8)
+    dp_mode = config.get("data_parallel", "auto")
+    use_dp = len(data_parallel_devices(device)) > 1 if dp_mode == "auto" \
+        else bool(dp_mode)
+    dp = _dp_detector(model_name, num_classes, model_cache_dir, device, int8) \
+        if use_dp else None
     info = video_io.probe(video_path)
     frame_ms = int(round(1000.0 / info.fps)) if info.fps else 33
 
@@ -154,9 +182,19 @@ def _run_detection(video_path: str, config: dict, *, model_name: str,
             decode_procs=int(config.get("decode_procs", 0)),
             fast_level=int(config.get("decode_fast", 1)))):
         batch_start = len(results)
-        boxed, scale, pads = letterbox_batch(batch.frames, batch.valid)
-        out = detect(model, torch.from_numpy(boxed).to(device),
-                     conf_threshold=conf, top_k=top_k)
+        if preprocess == "device":
+            scale, pad_x, pad_y = letterbox_geometry(
+                batch.frames.shape[1], batch.frames.shape[2], INPUT_SIZE)
+            pads = (pad_x, pad_y)
+            boxed = letterbox_resize_normalize(
+                torch.from_numpy(batch.frames).to(device), INPUT_SIZE, INPUT_SIZE)
+        else:
+            boxed, scale, pads = letterbox_batch(batch.frames, batch.valid)
+            boxed = torch.from_numpy(boxed).to(device)
+        if dp is not None:
+            out = dp(boxed, conf_threshold=conf, top_k=top_k)
+        else:
+            out = detect(model, boxed, conf_threshold=conf, top_k=top_k)
         meta = [(int(batch.frame_indices[i]), int(batch.timestamps_ms[i]))
                 for i in range(batch.valid)]
         emit_boxes(results, fetch(out), meta, scale, pads, batch.valid, 1.0,

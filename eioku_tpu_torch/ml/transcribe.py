@@ -18,14 +18,20 @@ Options, as in the JAX package:
 - `condition_on_previous_text`: a serial decode, window by window, with the
   tail of the previous text as sot_prev context (`_run_conditioned`);
 - `draft_model` / `speculative_gamma`: speculative greedy decoding with a
-  draft checkpoint (models/whisper/speculative.py), where it is eligible.
+  draft checkpoint (models/whisper/speculative.py), where it is eligible;
+- `compute_dtype` "float16" (faster-whisper's usual GPU compute type) or
+  "bfloat16" (the default) or "float32": weights and activations in that
+  type, K3 in the encoder on the card in the 16-bit types;
+- `tensor_parallel` > 1: where the JAX package would shard (as many cards
+  as `tensor_parallel`, n_heads divisible by it, no draft model, no
+  conditioned decode) the port raises ModelNotAvailable, since
+  tensor-parallel Whisper is not ported; everywhere else it logs the JAX
+  package's warning and decodes on one device, as the JAX package does.
 The options that change the decode take effect only with a checkpoint.
 
 Checkpoints: `{cache_dir}/whisper-{variant}.npz|.pt|.bin`. Without one, the
 model falls back to a random-weight `tiny` (or the full variant with
 `random_full_size`), which emits no rows, as in the JAX package.
-
-Not ported: tensor_parallel > 1, refused with ModelNotAvailable.
 """
 from __future__ import annotations
 
@@ -71,7 +77,7 @@ log = logging.getLogger(__name__)
 
 WINDOW_S = 30.0
 SAMPLES_PER_WINDOW = int(WINDOW_S * audio_io.SAMPLE_RATE)
-COMPUTE_DTYPES = ("float32", "bfloat16")
+COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
 
 
 @lru_cache(maxsize=2)
@@ -192,14 +198,10 @@ def needs_temperature_fallback(avg_lp: float, no_speech_prob: float,
 def _load_dtype(config: dict) -> str:
     """The compute type `_load_model` loads: "int8" for any int8* name (the
     turbo variant's default, as in the JAX package), else float32 or
-    bfloat16. Raises ModelNotAvailable for other types and for
-    tensor_parallel > 1, which is not ported."""
+    bfloat16 or float16. Raises ModelNotAvailable for other types."""
     variant = _normalize_variant(config.get("model", "large-v3"))
     default_cd = "int8" if variant == "large-v3-turbo" else "bfloat16"
     cd = str(config.get("compute_dtype", default_cd))
-    if int(config.get("tensor_parallel", 1)) > 1:
-        raise ModelNotAvailable("tensor_parallel > 1 (tensor-parallel whisper) "
-                                "is not ported to eioku_tpu_torch yet")
     if cd.lower().startswith("int8"):
         return "int8"
     if cd not in COMPUTE_DTYPES:
@@ -298,6 +300,17 @@ def run_transcription(video_path: str, config: dict,
                         "standard decode")
     conditioned = (bool(config.get("condition_on_previous_text", False))
                    and pretrained)
+    tp = int(config.get("tensor_parallel", 1))
+    if tp > 1:
+        if (torch.cuda.device_count() >= tp and cfg.n_heads % tp == 0
+                and spec_draft is None and not conditioned):
+            # where the JAX package would shard the weights over tp devices
+            raise ModelNotAvailable("tensor_parallel > 1 (tensor-parallel whisper) "
+                                    "is not ported to eioku_tpu_torch yet")
+        log.warning("tensor_parallel=%d needs >=%d devices, "
+                    "n_heads %% tp == 0, no draft_model, and "
+                    "condition_on_previous_text off (serial decode); "
+                    "falling back to single-device decode", tp, tp)
 
     batch_size = int(config.get("batch_size", 8))
     max_tokens = int(config.get("max_tokens", 128))

@@ -196,16 +196,23 @@ def encode(model: MiniLM, token_ids: torch.Tensor, attention_mask: torch.Tensor,
     return x
 
 
-@torch.no_grad()
-def minilm_embed(model: MiniLM, token_ids: torch.Tensor,
-                 attention_mask: torch.Tensor) -> torch.Tensor:
+def embed(model: MiniLM, token_ids: torch.Tensor,
+          attention_mask: torch.Tensor) -> torch.Tensor:
     """token_ids / mask [B, S] (on the model's device) -> L2-normalised
-    sentence embeddings [B, dim] in fp32."""
+    sentence embeddings [B, dim] in fp32; differentiable (the fine-tune's
+    forward, parallel/train.py)."""
     x = encode(model, token_ids, attention_mask).float()
     m = attention_mask[..., None].float()
     pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-9)
     norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
     return pooled / norm.clamp_min(1e-9)
+
+
+@torch.no_grad()
+def minilm_embed(model: MiniLM, token_ids: torch.Tensor,
+                 attention_mask: torch.Tensor) -> torch.Tensor:
+    """`embed` without gradients: the indexing, query and rerank paths."""
+    return embed(model, token_ids, attention_mask)
 
 
 # -- weights ----------------------------------------------------------------------------
@@ -260,6 +267,39 @@ def from_jax_params(params: dict) -> dict[str, np.ndarray]:
         jax_linear_state(f"{base}.output.dense", p["ffn2"], sd)
         jax_ln_state(f"{base}.output.LayerNorm", p["ffn_ln"], sd)
     return sd
+
+
+def to_jax_params(model: MiniLM) -> dict:
+    """The inverse of `from_jax_params`: the port's module -> the JAX
+    package's MiniLM parameter tree of fp32 numpy arrays (linear weight
+    [out, in] -> w [in, out]), which models/checkpoint.py saves as the
+    native checkpoint."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+
+    def lin(prefix: str) -> dict:
+        return {"w": np.ascontiguousarray(sd[f"{prefix}.weight"].T),
+                "b": sd[f"{prefix}.bias"]}
+
+    def ln(prefix: str) -> dict:
+        return {"gamma": sd[f"{prefix}.weight"], "beta": sd[f"{prefix}.bias"]}
+
+    tree = {"tok_emb": sd["embeddings.word_embeddings.weight"],
+            "pos_emb": sd["embeddings.position_embeddings.weight"],
+            "type_emb": sd["embeddings.token_type_embeddings.weight"],
+            "emb_ln": ln("embeddings.LayerNorm"), "layers": []}
+    for i in range(model.cfg.n_layers):
+        base = f"encoder.layer.{i}"
+        tree["layers"].append({
+            "q": lin(f"{base}.attention.self.query"),
+            "k": lin(f"{base}.attention.self.key"),
+            "v": lin(f"{base}.attention.self.value"),
+            "o": lin(f"{base}.attention.output.dense"),
+            "attn_ln": ln(f"{base}.attention.output.LayerNorm"),
+            "ffn1": lin(f"{base}.intermediate.dense"),
+            "ffn2": lin(f"{base}.output.dense"),
+            "ffn_ln": ln(f"{base}.output.LayerNorm"),
+        })
+    return tree
 
 
 def read_native_npz(path: str) -> dict:

@@ -21,7 +21,9 @@ form, Whisper), `gelu_erf` (exact form, MiniLM), `quick_gelu` (CLIP) and
 `mha` round, so a bf16 model computes what the JAX package's bf16 model
 computes. `quantize_linears` swaps every linear of a module for a
 `QuantLinear` (int8 weights, ops/quant.py), as the JAX package's
-`quantize_linears` rewrites every linear of a parameter tree.
+`quantize_linears` rewrites every linear of a parameter tree;
+`quantize_convs` swaps every folded convolution for a `QuantConv2d`, as the
+JAX package's `quantize_convs` rewrites every folded conv of a tree.
 """
 from __future__ import annotations
 
@@ -32,7 +34,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eioku_tpu_torch.ops.quant import linear_q, quantize_weight
+from eioku_tpu_torch.ops.quant import (
+    conv2d_q,
+    conv2d_q_sliced,
+    linear_q,
+    quantize_conv,
+    quantize_weight,
+)
 
 BN_EPS = 1e-3
 RESNET_BN_EPS = 1e-5
@@ -287,6 +295,65 @@ def quantize_linears(module: nn.Module) -> nn.Module:
             setattr(module, name, QuantLinear.from_linear(child))
         else:
             quantize_linears(child)
+    return module
+
+
+class QuantConv2d(nn.Module):
+    """An int8 convolution (buffers `w_q` int8 [out, in, kh, kw], `w_s` fp32
+    [out] and the float `bias`, which takes the module's compute type),
+    computed by ops/quant.py's `conv2d_q`: the JAX package's quantized conv
+    dict. Square kernels, symmetric padding."""
+
+    def __init__(self, w_q: torch.Tensor, w_s: torch.Tensor,
+                 bias: torch.Tensor | None, stride: int = 1, dilation: int = 1):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_s", w_s)
+        self.register_buffer("bias", bias)
+        self.stride = stride
+        self.dilation = dilation
+
+    @classmethod
+    def from_conv(cls, conv: nn.Conv2d) -> QuantConv2d:
+        w_q, w_s = quantize_conv(conv.weight)
+        dev = conv.weight.device
+        bias = None if conv.bias is None else conv.bias.detach().clone()
+        return cls(torch.from_numpy(w_q).to(dev), torch.from_numpy(w_s).to(dev), bias,
+                   conv.stride[0], conv.dilation[0])
+
+    def _apply(self, fn, recurse=True):
+        # the scales stay fp32 (the JAX package's) when the module moves to
+        # a compute type; they follow it to its device
+        w_s = self.w_s
+        super()._apply(fn, recurse)
+        self.w_s = w_s.to(self.w_q.device)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_q(x, self.w_q, self.w_s, self.bias, self.stride, self.dilation)
+
+    def forward_parts(self, x: torch.Tensor, parts: tuple[int, ...]) -> torch.Tensor:
+        """A 1x1 conv over a channel concatenation of `parts` (channel
+        counts), each part quantized with its own scales: the sum of the
+        sliced partials (in order), then the bias, as the JAX package's
+        neck computes a quantized C2f's cv1."""
+        acc, off = None, 0
+        for c in parts:
+            part = conv2d_q_sliced(x[:, off:off + c], self.w_q, self.w_s, off, off + c)
+            acc = part if acc is None else acc + part
+            off += c
+        return acc if self.bias is None else acc + self.bias.to(acc.dtype)[None, :, None, None]
+
+
+@torch.no_grad()
+def quantize_convs(module: nn.Module) -> nn.Module:
+    """Replace every nn.Conv2d under `module` (in place; fold batch norms
+    first) by its QuantConv2d. Returns `module`."""
+    for name, child in module.named_children():
+        if isinstance(child, nn.Conv2d):
+            setattr(module, name, QuantConv2d.from_conv(child))
+        else:
+            quantize_convs(child)
     return module
 
 

@@ -80,7 +80,8 @@ class WhisperConfig:
 
     @property
     def dtype(self) -> torch.dtype:
-        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[self.compute_dtype]
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}[self.compute_dtype]
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:

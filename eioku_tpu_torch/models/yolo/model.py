@@ -11,16 +11,27 @@ in the JAX package's anchor order (NHWC row-major per level, levels by
 stride), so box and class logits pair with the same anchors in both packages.
 The neck concatenates its inputs before each C2f (the JAX package splits
 that 1x1 conv over the parts instead; the same function up to summation
-order).
+order). With int8 convolutions (`quantize_convs` after the batch-norm fold,
+the detector's `int8` option) the neck's C2fs quantize each part of cv1's
+input with its own scale, as the JAX package's split conv does: nearest
+upsampling keeps a part's maximum, so the scales and int8 activations are
+the JAX package's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from eioku_tpu_torch.models.layers import ConvBN, init_weights, max_pool, upsample2x
+from eioku_tpu_torch.models.layers import (
+    ConvBN,
+    QuantConv2d,
+    init_weights,
+    max_pool,
+    upsample2x,
+)
 
 # depth_multiple, width_multiple, max_channels per variant (public YOLOv8 scales)
 YOLO_VARIANTS = {
@@ -71,15 +82,25 @@ class Bottleneck(nn.Module):
 
 
 class C2f(nn.Module):
-    def __init__(self, c_in: int, c_out: int, n: int, shortcut: bool):
+    """`parts`: the channel counts of a concatenated input (the neck's), whose
+    parts a quantized cv1 quantizes apart."""
+
+    def __init__(self, c_in: int, c_out: int, n: int, shortcut: bool,
+                 parts: tuple[int, ...] | None = None):
         super().__init__()
         c = c_out // 2
         self.cv1 = ConvBN(c_in, 2 * c, 1)
         self.m = nn.ModuleList(Bottleneck(c, shortcut) for _ in range(n))
         self.cv2 = ConvBN((2 + n) * c, c_out, 1)
+        self.parts = parts
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        outs = list(self.cv1(x).chunk(2, dim=1))
+        conv = self.cv1.conv
+        if self.parts is not None and isinstance(conv, QuantConv2d):
+            y = F.silu(conv.forward_parts(x, self.parts))
+        else:
+            y = self.cv1(x)
+        outs = list(y.chunk(2, dim=1))
         for m in self.m:
             outs.append(m(outs[-1]))
         return self.cv2(torch.cat(outs, dim=1))
@@ -124,12 +145,12 @@ class YOLOv8(nn.Module):
         self.down4 = ConvBN(ch[3], ch[4], 3, 2)
         self.c2f_4 = C2f(ch[4], ch[4], n[0], True)
         self.sppf = SPPF(ch[4], ch[4])  # -> P5
-        self.neck_c2f_td1 = C2f(ch[4] + ch[3], ch[3], n[0], False)
-        self.neck_c2f_td2 = C2f(ch[3] + ch[2], ch[2], n[0], False)  # -> N3
+        self.neck_c2f_td1 = C2f(ch[4] + ch[3], ch[3], n[0], False, (ch[4], ch[3]))
+        self.neck_c2f_td2 = C2f(ch[3] + ch[2], ch[2], n[0], False, (ch[3], ch[2]))  # -> N3
         self.neck_down1 = ConvBN(ch[2], ch[2], 3, 2)
-        self.neck_c2f_bu1 = C2f(ch[2] + ch[3], ch[3], n[0], False)  # -> N4
+        self.neck_c2f_bu1 = C2f(ch[2] + ch[3], ch[3], n[0], False, (ch[2], ch[3]))  # -> N4
         self.neck_down2 = ConvBN(ch[3], ch[3], 3, 2)
-        self.neck_c2f_bu2 = C2f(ch[3] + ch[4], ch[4], n[0], False)  # -> N5
+        self.neck_c2f_bu2 = C2f(ch[3] + ch[4], ch[4], n[0], False, (ch[3], ch[4]))  # -> N5
         c_box = max(16, ch[2] // 4, cfg.reg_max * 4)
         c_cls = max(ch[2], min(cfg.num_classes, 100))
         levels = [ch[2], ch[3], ch[4]]
@@ -139,6 +160,13 @@ class YOLOv8(nn.Module):
             _detect_branch(c, c_cls, cfg.num_classes) for c in levels)
         if generator is not None:
             init_weights(self, generator)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activation type: the float convs' type or, once quantized,
+        the type of their biases."""
+        conv = self.stem.conv
+        return conv.weight.dtype if isinstance(conv, nn.Conv2d) else conv.bias.dtype
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x: [B, 3, H, W] float in [0, 1], H and W divisible by 32.

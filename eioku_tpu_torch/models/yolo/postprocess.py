@@ -76,7 +76,7 @@ def detect(model: YOLOv8, images: torch.Tensor, conf_threshold: float = 0.25,
     [0, 1]; they run in the model's parameter type. Returns a dict of
     [B, min(top_k, max_det), ...] fixed-shape outputs plus the validity mask.
     """
-    dtype = next(model.parameters()).dtype
+    dtype = model.dtype
     x = images.to(dtype) / 255.0 if images.dtype == torch.uint8 \
         else images.to(dtype)
     b, h, w, _ = x.shape

@@ -23,7 +23,7 @@ from eioku_tpu_torch.ops import _cuda
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 HEAD_DIMS = (32, 64)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,10 +53,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """t itself when the kernel can read it through its strides, else a
-    dense copy: D must be dense and, for bf16, the TMA's tensor maps need a
-    16-byte aligned base and strides of whole 16 bytes, none 0 (an expanded
-    view) where the extent is above 1."""
-    align = 8 if t.dtype == torch.bfloat16 else 1
+    dense copy: D must be dense and, for bf16 and f16, the TMA's tensor maps
+    need a 16-byte aligned base and strides of whole 16 bytes, none 0 (an
+    expanded view) where the extent is above 1."""
+    align = 8 if t.dtype in (torch.bfloat16, torch.float16) else 1
     ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
           and all(s % align == 0 and (s > 0 or n == 1)
                   for s, n in zip(t.stride()[:3], t.shape[:3])))
@@ -70,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     lengths: [B] valid KV lengths (None = all); scale defaults to D^-0.5.
     D must be 32 or 64 (ValueError otherwise). CPU tensors take the plain
-    version; CUDA tensors (bf16 or fp32) launch the kernel, and anything the
+    version; CUDA tensors (bf16, f16 or fp32) launch the kernel, and anything the
     kernel cannot take raises: there is no fallback on the card."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, S, D]")
@@ -93,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lengths is not None and lengths.device != q.device):
         raise ValueError("q, k, v and lengths must be on one device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the kernel takes bf16 or fp32 q, k, v of one type, got "
+        raise TypeError(f"the kernel takes bf16, f16 or fp32 q, k, v of one type, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if sq == 0 or skv == 0 or b == 0 or h == 0:
         raise ValueError("empty attention")

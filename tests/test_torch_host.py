@@ -114,9 +114,7 @@ CHANGED = {
     "workers/main.py": ({"build_worker", "main"},
                         "EIOKU_FORCE_CPU picks the engine's and the indexes' "
                         "device; no initialize_distributed"),
-    "cli.py": ({"_ctx", "cmd_finetune"},
-               "_ctx takes the API's device rule; finetune refuses, since "
-               "training is not ported"),
+    "cli.py": ({"_ctx"}, "_ctx takes the API's device rule"),
 }
 
 

@@ -150,6 +150,13 @@ def _bf16_ulp(x):
     return torch.exp2(e - 7)
 
 
+def _f16_ulp(x):
+    """Spacing of f16 values at |x| (11 significant bits; subnormals below
+    2^-14 are spaced 2^-24)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -14)))
+    return torch.exp2(e - 10)
+
+
 def _qkv(shape, dtype, device, seed, scale=1.0):
     g = torch.Generator(device=device).manual_seed(seed)
     return [(torch.randn(shape, generator=g, device=device) * scale).to(dtype)
@@ -165,12 +172,19 @@ def _assert_flash_close(got, want, cancel):
     sum moves by at most 2^-9 * sum_j p_j |v_j| (with l summed from the
     unrounded p); the bound doubles that for the order of the fp32 sums and
     the exp2 approximation. It shows only where the output cancels to near
-    zero; elsewhere the 1 ulp dominates."""
+    zero; elsewhere the 1 ulp dominates. f16: 1 f16 ulp plus 2^-11 * sum_j
+    p_j |v_j|, the rounding of each p to f16's 11 significant bits (the
+    fp32 sums' order and exp2's error lie three orders below it)."""
     if got.dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
         return
     diff = (got.float() - want.float()).abs()
-    ulp = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+    top = torch.maximum(got.float().abs(), want.float().abs())
+    if got.dtype == torch.float16:
+        excess = diff - _f16_ulp(top) - 2.0 ** -11 * cancel
+        assert bool((excess <= 0).all()), float(excess.max())
+        return
+    ulp = _bf16_ulp(top)
     excess = diff - ulp - 2.0 ** -8 * cancel
     assert bool((excess <= 0).all()), float(excess.max())
 
@@ -196,10 +210,14 @@ def _check_flash(shape, dtype, causal, lengths, device, seed=None):
     _assert_flash_close(got, want, cancel)
 
 
-# the Whisper large-v3 encoder's shape (bf16 on the path, f32 with
-# compute_dtype float32), a causal ragged case, MiniLM's lengths case
+# the Whisper large-v3 encoder's shape (bf16 on the path, f16 with
+# compute_dtype float16, f32 with float32), a causal ragged case, MiniLM's
+# lengths case
 @pytest.mark.parametrize("shape,dtype,causal,lengths", [
     ((4, 20, 1500, 64), torch.bfloat16, False, None),
+    ((4, 20, 1500, 64), torch.float16, False, None),
+    ((2, 12, 512, 32), torch.float16, False, [512, 130]),
+    ((2, 2, 130, 64), torch.float16, True, [0, 100]),
     ((4, 20, 1500, 64), torch.float32, False, None),
     ((2, 4, 200, 64), torch.float32, True, None),
     ((2, 12, 512, 32), torch.bfloat16, False, [512, 130]),
@@ -217,6 +235,13 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, causal,
 @pytest.mark.parametrize("s", [1, 128, 129, 300])
 def test_flash_attention_bf16_kernel_sequence_edges(cuda_device, s, d):
     _check_flash((2, 3, s, d), torch.bfloat16, False, None, cuda_device)
+
+
+# the f16 instantiation at the same edges
+@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("s", [1, 129, 300])
+def test_flash_attention_f16_kernel_sequence_edges(cuda_device, s, d):
+    _check_flash((2, 3, s, d), torch.float16, False, None, cuda_device)
 
 
 # lengths around a KV tile boundary; batch row 1 has no valid key
@@ -253,9 +278,12 @@ def test_flash_attention_kernel_refuses_other_inputs(cuda_device):
     q, k, v = _qkv((1, 2, 64, 48), torch.bfloat16, cuda_device, seed=0)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, k, v)
-    q, k, v = _qkv((1, 2, 64, 64), torch.float16, cuda_device, seed=0)
-    with pytest.raises(TypeError, match="bf16 or fp32"):
+    q, k, v = _qkv((1, 2, 64, 64), torch.float64, cuda_device, seed=0)
+    with pytest.raises(TypeError, match="bf16, f16 or fp32"):
         flash_attention(q, k, v)
+    q, k, v = _qkv((1, 2, 64, 64), torch.float16, cuda_device, seed=0)
+    with pytest.raises(TypeError, match="of one type"):
+        flash_attention(q, k.to(torch.bfloat16), v)
 
 
 # MiniLM's K3 route: S = 512 with per-row lengths, [B, H, S, 32] views of

@@ -9,9 +9,9 @@ package's (CPU).
 - `export_clip` on its cv2 re-encode path: equal frame counts.
 - The ops CLI: every command through both packages' `main()` on copies of
   one database gives equal stdout (search scores within the bf16 tolerance
-  of tests/test_torch_api.py) and equal files; `finetune` refuses in the
-  port; without CUDA the port's CLI raises at start unless EIOKU_FORCE_CPU=1
-  or both search indexes are off.
+  of tests/test_torch_api.py) and equal files; `finetune` gives the JAX
+  package's stats on a small seeded MiniLM; without CUDA the port's CLI
+  raises at start unless EIOKU_FORCE_CPU=1 or both search indexes are off.
 
 Rows minted while a package works (ids, timestamps) are made comparable the
 way tests/test_torch_api.py does: uuid4 draws seeded alike, timestamp
@@ -394,10 +394,46 @@ def test_cli_files_as_jax(cli_runs, part):
     assert got == want and got
 
 
-def test_cli_finetune_refuses(monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["eioku", "finetune", "--steps", "1"])
-    with pytest.raises(SystemExit, match="not ported yet.*ROADMAP.md, Queue 1 item 9"):
-        port_cli.main()
+def test_cli_finetune_as_jax(tmp_path, monkeypatch, capsys):
+    """`finetune` (refused by the port before) through both CLIs on one
+    library of seeded chunks, with both packages' MiniLM loader patched to
+    tests/test_torch_finetune.py's small seeded tree: the same stats, losses
+    within its LOSS_RTOL and LOSS_ATOL, and each checkpoint where its package saves it."""
+    import jax
+
+    import eioku_tpu.parallel.finetune as jax_ft
+    import eioku_tpu_torch.parallel.finetune as port_ft
+    import test_torch_finetune as ft
+    from eioku_tpu.models.embed import minilm as jml
+    from eioku_tpu_torch.models.embed import minilm as pml
+
+    tree = ft.tree.__wrapped__()
+    jcfg, pcfg = jml.MiniLMConfig(**ft.TINY), pml.MiniLMConfig(**ft.TINY)
+    monkeypatch.setattr(jax_ft, "load_minilm", lambda cache: (
+        jax.tree.map(jax.numpy.asarray, tree), jcfg, False))
+    monkeypatch.setattr(port_ft, "load_minilm", lambda cache, device="cpu": (
+        ft._port_model(tree).to(device), pcfg, False))
+    monkeypatch.setenv("EIOKU_FORCE_CPU", "1")
+    url = ft.corpus.__wrapped__(tmp_path)
+    stats = {}
+    for name, main in (("jax", jax_cli.main), ("port", port_cli.main)):
+        cfg = tmp_path / f"{name}.json"
+        cfg.write_text(json.dumps({"paths": [], "model_cache_dir": str(tmp_path / name),
+                                   "semantic_search": False, "visual_search": False}))
+        monkeypatch.setattr(sys, "argv", [
+            "eioku", "--db", url, "--config", str(cfg), "finetune", "--steps",
+            str(ft.STEPS), "--batch-size", str(ft.BATCH), "--lr", str(ft.LR)])
+        capsys.readouterr()
+        assert main() == 0
+        stats[name] = json.loads(capsys.readouterr().out)
+    got, want = stats["port"], stats["jax"]
+    assert set(got) == set(want)
+    assert (got["steps"], got["chunks"]) == (want["steps"], want["chunks"]) == (ft.STEPS, 24)
+    for k in ("first_loss", "last_loss"):
+        np.testing.assert_allclose(got[k], want[k], rtol=ft.LOSS_RTOL, atol=ft.LOSS_ATOL)
+    for name in ("jax", "port"):
+        assert stats[name]["checkpoint"] == str(tmp_path / name / "minilm-l6" / "native.npz")
+        assert pathlib.Path(stats[name]["checkpoint"]).is_file()
 
 
 @pytest.mark.parametrize("search", [{}, {"semantic_search": False},

@@ -5,8 +5,9 @@ The combined visual pass (scenes, YOLOv8n objects, yolov8n-face faces with
 ArcFace embeddings, ResNet18-Places365 places) on each of its routes, and
 standalone scene and object detection, run through both packages on the
 same synthetic clips; the engine runs OCR standalone and folded into the
-pass, and refuses what it does not cover; the port imports nothing of JAX
-or of the JAX package.
+pass, and refuses what it does not cover; the pass takes the detection
+options as the JAX pass does; the port imports nothing of JAX or of the JAX
+package.
 """
 import ast
 import pathlib
@@ -435,19 +436,29 @@ def test_fused_faces_match_separate_consumer(tmp_path, visual_cache_dir):
             assert abs(fb[k] - sb[k]) < 2.0, (fb, sb)
 
 
-# options of a task the port runs, still refused
-_STILL_REFUSED = {"transcription": {"tensor_parallel": 2},
-                  "face_detection": {"int8": True},
-                  "object_detection": {"preprocess": "device"}}
+# options of a task the port runs, still refused: tensor-parallel Whisper
+# where the JAX package would shard (two cards, stubbed: hazard y)
+_STILL_REFUSED = {"transcription": {"tensor_parallel": 2}}
 
 
-@pytest.mark.parametrize("task_type", [
-    "face_detection", "transcription",
-    "object_detection", "semantic_indexing", "no_such_task"])
-def test_unported_tasks_raise(task_type, scene_video):
+@pytest.mark.parametrize("task_type", ["transcription", "semantic_indexing",
+                                       "no_such_task"])
+def test_unported_tasks_raise(task_type, scene_video, tmp_path, monkeypatch):
+    import wave
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    media = scene_video
+    if task_type == "transcription":  # a voiced second of audio
+        media = str(tmp_path / "tone.wav")
+        t = np.arange(16000) / 16000
+        with wave.open(media, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((0.3 * np.sin(2 * np.pi * 220 * t) * 32767).astype(np.int16).tobytes())
     with pytest.raises(ModelNotAvailable):
         InferenceEngine(device="cpu").run_task(
-            task_type, scene_video, _STILL_REFUSED.get(task_type, {}))
+            task_type, media, _STILL_REFUSED.get(task_type, {}))
 
 
 def _check_ocr_rows(rows: list[dict]) -> None:
@@ -488,22 +499,58 @@ def test_ocr_task_and_folds_run(task_type, config, scene_video):
         assert out[sub], sub
 
 
-@pytest.mark.parametrize("config,needle", [
-    ({"scene_detection": {}, "face_detection": {"int8": True}}, "int8"),
-    ({"object_detection": {"int8": True}}, "int8"),
-    ({"object_detection": {"preprocess": "device"}}, "preprocess"),
-    ({"object_detection": {"data_parallel": True}}, "data-parallel"),
-])
-def test_unported_visual_configs_raise(config, needle, scene_video):
-    with pytest.raises(ModelNotAvailable, match=needle):
-        InferenceEngine(device="cpu").run_task("visual_analysis", scene_video,
-                                               config)
+# the detection options the pass refused before: like the JAX pass it
+# ignores preprocess and data_parallel, and quantizes objects and faces
+_PASS_OPTIONS = {
+    "preprocess": {"scene_detection": {}, "decode_fast": 0,
+                   "object_detection": {"batch_size": 4, "preprocess": "device"}},
+    "data_parallel": {"decode_fast": 0,
+                      "object_detection": {"batch_size": 4, "data_parallel": True}},
+    "int8_objects": {"decode_fast": 0, "object_detection": {"batch_size": 4, "int8": True}},
+    "int8_faces": {"scene_detection": {}, "decode_fast": 0,
+                   "face_detection": {"batch_size": 4, "int8": True,
+                                      "confidence_threshold": FACE_CONF}},
+}
 
 
-def test_object_detection_task_refuses_int8(scene_video):
-    with pytest.raises(ModelNotAvailable):
-        InferenceEngine(device="cpu").run_task("object_detection", scene_video,
-                                               {"int8": True})
+@pytest.mark.parametrize("option", sorted(_PASS_OPTIONS))
+def test_visual_pass_detection_options_match_jax(option, detector_clip, visual_cache_dir,
+                                                 monkeypatch):
+    """Rows against the JAX pass's at fp32 (hazard b; decode_fast 0, hazard
+    a; no artifact ids or producer in the pass's rows, hazard i). int8 runs
+    teacher-forced on the JAX run's quantizations (tests/
+    test_torch_quant_conv.py, hazard r)."""
+    from test_torch_quant_conv import (
+        assert_int8_rows_match,
+        port_takes_recorded,
+        record_jax_quantizations,
+    )
+
+    config = _PASS_OPTIONS[option]
+    _jax_pass_at_fp32(monkeypatch)
+    engine = InferenceEngine(model_cache_dir=visual_cache_dir, device="cpu")
+    sub = "face_detection" if option == "int8_faces" else "object_detection"
+    if option.startswith("int8"):
+        with record_jax_quantizations() as rec:
+            want = jax_visual_analysis(detector_clip, config, visual_cache_dir)
+        stats = {}
+        with port_takes_recorded(rec, stats):
+            got = engine.run_task("visual_analysis", detector_clip, config)
+        assert rec.at == len(rec.calls) > 0
+        assert_int8_rows_match(want[sub], got[sub], stats)
+    else:
+        want = jax_visual_analysis(detector_clip, config, visual_cache_dir)
+        got = engine.run_task("visual_analysis", detector_clip, config)
+        # ignored, as in the JAX pass: the rows of the pass without the key
+        plain = {**config, sub: {k: v for k, v in config[sub].items()
+                                 if k not in ("preprocess", "data_parallel")}}
+        assert got == engine.run_task("visual_analysis", detector_clip, plain)
+        jrows, trows = want[sub], got[sub]
+        assert len(jrows) > 0
+        assert _match_rows(jrows, trows) >= ROW_MATCH * max(len(jrows), len(trows))
+    assert set(got) == set(want)
+    if "scene_detection" in config:
+        assert got["scene_detection"] == want["scene_detection"]
 
 
 def test_engine_without_cuda_raises(monkeypatch):

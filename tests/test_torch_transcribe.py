@@ -143,13 +143,91 @@ def test_no_audio_gives_no_rows(tmp_path):
     assert jax_transcribe.run_transcription(str(video), {}) == []
 
 
-@pytest.mark.parametrize("config,needle", [
-    ({"compute_dtype": "float16"}, "float16"),
-    ({"tensor_parallel": 2}, "tensor_parallel"),
-])
-def test_unported_options_raise(audio_dir, config, needle):
-    with pytest.raises(ModelNotAvailable, match=needle):
-        transcribe.run_transcription(str(audio_dir / "clip.wav"), config,
+F16_ENC_TOL = 1e-2  # f16 encoder states, relative to the largest |value|
+
+
+@pytest.fixture()
+def pretrained_f16(monkeypatch, jax_tiny):
+    """The seeded tree as a float16 checkpoint in both packages: JAX's
+    `_load_model` casts every leaf to the compute type, the port's stores
+    the module in it."""
+    from eioku_tpu.models.layers import cast_params
+
+    jcfg = JaxWhisperConfig("tiny", compute_dtype="float16")
+    jparams = cast_params(jax_tiny[0], jax.numpy.float16)
+    pcfg = WhisperConfig("tiny", compute_dtype="float16")
+    model = from_jax_params(jax.tree.map(np.asarray, jax_tiny[0]), pcfg)
+    model = model.to(torch.float16).eval()
+    monkeypatch.setattr(jax_transcribe, "_load_model",
+                        lambda *a, **kw: (jparams, jcfg, True))
+    monkeypatch.setattr(transcribe, "_load_model",
+                        lambda *a, **kw: (model, pcfg, True))
+    return (jparams, jcfg), model
+
+
+def test_float16_matches_jax(audio_dir, pretrained_f16):
+    """compute_dtype float16 runs as the JAX package runs it (it was refused
+    before). f16 on the CPU is not bit-comparable between the packages
+    (hazard k: XLA keeps fp32 inside its fusions), so the encoder states are
+    held within F16_ENC_TOL of the largest |value|, then the transcripts'
+    tokens, which the decode's argmax takes from the f16 states."""
+    from eioku_tpu.models.whisper.mel import log_mel_spectrogram as jax_mel
+    from eioku_tpu.models.whisper.model import whisper_encode as jax_encode
+    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from eioku_tpu_torch.models.whisper.model import whisper_encode
+
+    (jparams, jcfg), model = pretrained_f16
+    x = audio_io.load_audio(str(audio_dir / "clip.wav"))[:SR * 30]
+    want = np.asarray(jax_encode(jparams, jax_mel(jax.numpy.asarray(x[None]),
+                                                  n_mels=80), jcfg), np.float32)
+    got = whisper_encode(model, log_mel_spectrogram(torch.from_numpy(x[None]), n_mels=80))
+    assert got.dtype == torch.float16 and want.dtype == np.float32
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= F16_ENC_TOL, err
+    cfg = {"model": "tiny", "compute_dtype": "float16", "language": "en",
+           "temperatures": [], "no_speech_threshold": 2.0, "max_tokens": 10,
+           "batch_size": 2, "beam_size": 1, "timestamps": False}
+    wav, cache = str(audio_dir / "clip.wav"), str(audio_dir)
+    want_rows = jax_transcribe.run_transcription(wav, cfg, model_cache_dir=cache)
+    got_rows = InferenceEngine(model_cache_dir=cache, device="cpu").run_task(
+        "transcription", wav, cfg)
+    assert len(want_rows) > 0
+    assert [r["payload"]["text"] for r in got_rows] == \
+        [r["payload"]["text"] for r in want_rows]
+    assert [(r["span_start_ms"], r["span_end_ms"]) for r in got_rows] == \
+        [(r["span_start_ms"], r["span_end_ms"]) for r in want_rows]
+
+
+def test_tensor_parallel_falls_back_like_jax(audio_dir, pretrained, caplog):
+    """tensor_parallel 2 on a host without two cards: the port warns and
+    decodes on one device. Under conftest's 8 host devices the JAX package
+    shards the weights over two of them, and its tensor-parallel decode is
+    token-identical to one device's, so the rows must be equal."""
+    cfg = {"model": "tiny", "compute_dtype": "float32", "language": "en",
+           "temperatures": [], "no_speech_threshold": 2.0, "max_tokens": 10,
+           "batch_size": 2, "beam_size": 2, "tensor_parallel": 2}
+    wav, cache = str(audio_dir / "clip.wav"), str(audio_dir)
+    assert len(jax.devices()) >= 2  # the JAX side takes its sharded route
+    want = jax_transcribe.run_transcription(wav, cfg, model_cache_dir=cache)
+    with caplog.at_level("WARNING", logger=transcribe.log.name):
+        got = InferenceEngine(model_cache_dir=cache, device="cpu").run_task(
+            "transcription", wav, cfg)
+    assert "falling back to single-device decode" in caplog.text
+    rows_w, conf_w = _split_confidence(want)
+    rows_g, conf_g = _split_confidence(got)
+    assert rows_g == rows_w and len(got) > 0
+    np.testing.assert_allclose(conf_g, conf_w, rtol=0, atol=1e-4)
+
+
+def test_tensor_parallel_refused_where_jax_would_shard(audio_dir, monkeypatch):
+    # two cards (stubbed, hazard y), tiny's 6 heads divisible by 2, no draft,
+    # no conditioned decode: the JAX package would shard, the port refuses
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ModelNotAvailable, match="tensor_parallel"):
+        transcribe.run_transcription(str(audio_dir / "clip.wav"),
+                                     {"model": "tiny", "tensor_parallel": 2},
                                      device="cpu")
 
 

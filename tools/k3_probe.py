@@ -39,8 +39,8 @@ PATCHES = {
     "no_softmax": [("  if (kMask) {\n#pragma unroll\n    for (int n = 0; n < 16; ++n) {",
                     "  if (true) {\n    alpha[0] = alpha[1] = 1.f;\n    return;\n  }\n"
                     "  if (kMask) {\n#pragma unroll\n    for (int n = 0; n < 16; ++n) {")],
-    "no_pv": [("issue_pv<D>(o_acc, p, v_desc(", "if (0) issue_pv<D>(o_acc, p, v_desc(")],
-    "no_qk": [("issue_qk<D>(s, q_desc, k_desc(", "if (0) issue_qk<D>(s, q_desc, k_desc(")],
+    "no_pv": [("issue_pv<E, D>(o_acc, p, v_desc(", "if (0) issue_pv<E, D>(o_acc, p, v_desc(")],
+    "no_qk": [("issue_qk<E, D>(s, q_desc, k_desc(", "if (0) issue_qk<E, D>(s, q_desc, k_desc(")],
     "two_warpgroups": [("constexpr int kWGs = 3;", "constexpr int kWGs = 2;"),
                        ("constexpr int kProducerRegs = 32;", "constexpr int kProducerRegs = 24;"),
                        ("constexpr int kConsumerRegs = 160;", "constexpr int kConsumerRegs = 240;")],
@@ -50,7 +50,7 @@ PATCHES = {
 
 def build(out_dir: str) -> dict[str, str]:
     """One patched source and library per copy; returns ptxas' spill lines
-    for the bf16 kernels."""
+    for the 16-bit kernels."""
     from eioku_tpu_torch.ops import _cuda
 
     os.makedirs(out_dir, exist_ok=True)
@@ -78,7 +78,7 @@ def build(out_dir: str) -> dict[str, str]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         spills[name] = "; ".join(
-            chip_smoke._spills(log, ("flash_bf16_hopper",))) or "none"
+            chip_smoke._spills(log, ("flash_hopper",))) or "none"
     return spills
 
 

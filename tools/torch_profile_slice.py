@@ -127,7 +127,7 @@ def _device_events(prof):
 
 def _category(name: str) -> str:
     low = name.lower()
-    if "flash_bf16_hopper" in low or "flash_simt" in low:
+    if "flash_hopper" in low or "flash_simt" in low:
         return "K3 flash_attention"
     if "nms_mask_kernel" in low or "nms_scan_kernel" in low:
         return "K2 nms"
