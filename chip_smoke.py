@@ -233,15 +233,37 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    the first step's loss within FINETUNE_LOSS_RTOL of the same batch on the
    CPU (fp32, TF32 off), the loss falling, the saved native.npz loaded by
    load_minilm; ms per step timed in this process;
-12. JSON lines: each slice's results, phase 5's to 11's, each phase's
+12. the multi-device serving layer, every mesh on the one card (its shards
+   run one after the other, so no time here is a speed-up): 12.1 a process
+   joins a world-size-1 NCCL group from EIOKU_COORDINATOR /
+   EIOKU_NUM_PROCESSES / EIOKU_PROCESS_ID (initialize_distributed), runs an
+   all_reduce and the port's collectives, init seconds reported; 12.2 K3
+   at the TP encoder's local heads (H = 10 and 5, as [B, S, H, D] views of
+   the column shard, which must not be copied) in bf16 and f16 against its
+   plain version and timed; the TP encoder at large-v3 over [cuda:0] * 2
+   and * 4 on the 4 voiced windows against whisper_encode: bf16 within
+   TP_BF16_FACTOR times bf16's own departure from fp32 on the same
+   weights, fp32 (TF32 off) within 1e-4 of the largest |value|, K3 32 x tp
+   launches; 12.3 the large-v3 bf16 TP decode (beam 5) against one device:
+   the tokens' agreement and the one-device top-2 margin where they first
+   part, walls, device operations a step; then run_task("transcription")
+   with tensor_parallel 2 on 4d's seeded tiny checkpoint, `local_devices`
+   replaced by [cuda:0, cuda:0], rows equal to the one-device task at fp32;
+   12.4 the PP encoder (2 stages of 16 layers, 2 microbatches) under 12.2's
+   rule, K3 64 launches; 12.5 ring attention [1, 20, 6000, 64] fp32 over
+   [cuda:0] * 4 within 2e-5 of full attention, and the MoE (d 1280, ffn
+   5120, 8 experts, 4096 tokens) over [cuda:0, cuda:0] within 1e-4 of one
+   device, each timed;
+13. JSON lines: each slice's results, phase 5's to 12's, each phase's
    seconds, and {"kernels": [...]} with each kernel's launches in the
    measured run, max error, kernel / plain / bound / library times (K1's
    and K2's entries also with their launches in the pass with OCR, through
    the worker, in phase 9's upload drain and in the int8 pass, K2's with
    two replicas; K3's with its launches per MiniLM call at S = 512, on the
    indexing path, in turbo's int8 and bf16 runs, in a speculative batch
-   and in the f16 transcription, and its f16 route's error and times);
-13. the card's name and power limit (nvidia-smi), then, as the last line,
+   and in the f16 transcription, on the TP and PP encoders and in the TP
+   transcription, and its f16 route's error and times, and at H = 10 and 5);
+14. the card's name and power limit (nvidia-smi), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits nonzero and
@@ -355,6 +377,21 @@ LETTERBOX_CPU_FRAMES = 8  # frames letterboxed on the CPU for that check
 # phase 11, the fine-tune
 FINETUNE_STEPS, FINETUNE_BATCH = 20, 16
 FINETUNE_LOSS_RTOL = 1e-4  # the first step's loss, card (TF32 off) vs CPU, fp32
+# phase 12, the multi-device serving layer, its shards on one card listed
+# several times (NCCL takes one rank a card, and the smoke run has one card)
+TP_SIZES = (2, 4)  # large-v3's 20 heads: 10 and 5 a shard
+TP_FP32_TOL = 1e-4  # fp32 TP and PP encoders vs one device (TF32 off), relative
+# bf16 TP and PP encoders vs the bf16 one-device encoder, relative to the
+# largest |value|: at most this multiple of bf16's own departure from fp32 on
+# the same weights (the sharded encoders round where one device rounds, and
+# once more per residual sum; both departures grow alike through 32 layers)
+TP_BF16_FACTOR = 2.0
+PP_MICRO = 2  # large-v3's 32 encoder layers over 2 stages: 16 a stage
+TP_DECODE_LEN = 64  # large-v3 bf16 TP decode, beam 5, EOT suppressed
+RING_SHAPE = (1, 20, 6000, 64)  # 4 x 1500 frames: two minutes as one context
+RING_TOL = 2e-5
+MOE_SHAPE = (1280, 5120, 8, 4096)  # d, ffn, experts, tokens
+MOE_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1240,9 +1277,34 @@ def phase_production_decode(dev, wav: str) -> dict:
             "tokens_per_s": tokens / wall, "windows": len(windows)}
 
 
-def _first_divergence_margin(cpu_model, card_model, wav: str, dev) -> float:
-    """Where the CPU's and the card's decoded tokens first part: the CPU's
-    top-2 log-prob margin at that step (decode_full on the CPU's prefix)."""
+def _first_divergence_margin(ref_rows, rows, model, enc, sup_a,
+                             labels: tuple[str, str] = ("CPU", "card")) -> float:
+    """Where `rows` first part from `ref_rows` (token rows on the CPU): the
+    reference's top-2 log-prob margin at that step (decode_full of `model`
+    on the reference's prefix over `enc`, on enc's device); 0 where no row
+    parts."""
+    import torch
+
+    from eioku_tpu_torch.models.whisper.model import whisper_decode_full
+
+    diff = (ref_rows != rows).nonzero()
+    if len(diff) == 0:
+        return 0.0
+    w, p = (int(v) for v in diff[0])
+    d = enc.device
+    logits = whisper_decode_full(model, ref_rows[w:w + 1, :p].to(d), enc[w:w + 1])
+    lp = torch.log_softmax(logits[0, -1].float().masked_fill(sup_a.to(d), -1e30), dim=-1)
+    top2 = lp.topk(2).values
+    margin = float(top2[0] - top2[1])
+    log(f"{labels[1]} and {labels[0]} tokens first part in window {w} at position {p}: "
+        f"{labels[0]} {int(ref_rows[w, p])}, {labels[1]} {int(rows[w, p])}; "
+        f"{labels[0]} top-2 log-prob margin there {margin:.3e}")
+    return margin
+
+
+def _tiny_card_vs_cpu_margin(cpu_model, card_model, wav: str, dev) -> float:
+    """Beam-5 decodes of the wav's windows on the CPU and on the card, and
+    the CPU's top-2 margin where their tokens first part."""
     import torch
 
     from eioku_tpu_torch.ml import audio_io
@@ -1251,10 +1313,7 @@ def _first_divergence_margin(cpu_model, card_model, wav: str, dev) -> float:
         whisper_decode_windows,
     )
     from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
-    from eioku_tpu_torch.models.whisper.model import (
-        whisper_decode_full,
-        whisper_encode,
-    )
+    from eioku_tpu_torch.models.whisper.model import whisper_encode
     from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
 
     tk = WhisperTokens(cpu_model.cfg.vocab_size)
@@ -1262,28 +1321,15 @@ def _first_divergence_margin(cpu_model, card_model, wav: str, dev) -> float:
         audio_io.load_wav(wav))]))
     sot = tk.sot_sequence("en", timestamps=True)
     sup_a, sup_b = build_suppress_masks(tk, timestamps=True)
-    rows = {}
+    rows, encs = {}, {}
     for name, model, d in (("cpu", cpu_model, torch.device("cpu")),
                            ("card", card_model, dev)):
-        enc = whisper_encode(model, log_mel_spectrogram(wavs.to(d), 80))
+        encs[name] = whisper_encode(model, log_mel_spectrogram(wavs.to(d), 80))
         init = torch.tensor([sot] * len(wavs), device=d)
         rows[name] = whisper_decode_windows(
-            model, enc, init, sup_a, sup_b, max_len=TINY_CONFIG["max_tokens"],
+            model, encs[name], init, sup_a, sup_b, max_len=TINY_CONFIG["max_tokens"],
             beam_size=5)[0].cpu()
-        if name == "cpu":
-            cpu_enc = enc
-    diff = (rows["cpu"] != rows["card"]).nonzero()
-    if len(diff) == 0:
-        return 0.0
-    w, p = (int(v) for v in diff[0])
-    logits = whisper_decode_full(cpu_model, rows["cpu"][w:w + 1, :p], cpu_enc[w:w + 1])
-    lp = torch.log_softmax(logits[0, -1].masked_fill(sup_a, -1e30), dim=-1)
-    top2 = lp.topk(2).values
-    margin = float(top2[0] - top2[1])
-    log(f"card and CPU tokens first part in window {w} at position {p}: "
-        f"CPU {int(rows['cpu'][w, p])}, card {int(rows['card'][w, p])}; "
-        f"CPU top-2 log-prob margin there {margin:.3e}")
-    return margin
+    return _first_divergence_margin(rows["cpu"], rows["card"], cpu_model, encs["cpu"], sup_a)
 
 
 def phase_card_vs_cpu(dev, wav: str, workdir: str) -> dict:
@@ -1341,7 +1387,7 @@ def phase_card_vs_cpu(dev, wav: str, workdir: str) -> dict:
         if equal:
             log("tiny pretrained-path rows: card equals CPU")
         else:
-            margin = _first_divergence_margin(cpu_model, card_model, wav, dev)
+            margin = _tiny_card_vs_cpu_margin(cpu_model, card_model, wav, dev)
             if not margin < TOKEN_MARGIN_TOL:
                 raise AssertionError(f"card rows differ from the CPU's and the CPU's "
                                      f"top-2 margin is {margin} >= {TOKEN_MARGIN_TOL}")
@@ -3685,6 +3731,378 @@ def phase_finetune(dev, workdir: str, card: str) -> dict:
             "first_loss_rel_err": rel, "s_per_step": per_step, "card": card}
 
 
+# -- phase 12: the mesh and process group, TP and PP Whisper, ring attention, MoE ----------
+
+
+_PROCESS_GROUP_CHILD = r"""
+import json, time
+import torch
+from eioku_tpu_torch.parallel.mesh import Mesh, initialize_distributed
+
+t = time.perf_counter()
+assert initialize_distributed() is True
+init_s = time.perf_counter() - t
+backend = torch.distributed.get_backend()
+x = torch.arange(4.0, device="cuda") + torch.distributed.get_rank()
+torch.distributed.all_reduce(x)
+comm = Mesh.over_process_group("cuda:0").lines("model")[0]
+(s,) = comm.psum([x])
+(g,) = comm.all_gather([x[None]])
+torch.cuda.synchronize()
+ok = torch.equal(x.cpu(), torch.arange(4.0)) and torch.equal(s, x) and torch.equal(g[0], x)
+torch.distributed.destroy_process_group()
+print(json.dumps({"backend": backend, "init_s": init_s, "ok": ok,
+                  "world_size": 1, "device": torch.cuda.get_device_name(0)}))
+"""
+
+
+def _process_group() -> dict:
+    """12.1 A process joins a world-size-1 group from the variables the
+    worker reads, on the card: NCCL, an all_reduce and the port's
+    collectives over it."""
+    env = {**_service_env(), "EIOKU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "EIOKU_NUM_PROCESSES": "1", "EIOKU_PROCESS_ID": "0"}
+    t = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", _PROCESS_GROUP_CHILD], env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    if done.returncode != 0:
+        raise AssertionError(f"process group child exited {done.returncode}: "
+                             f"{done.stderr[-2000:]}")
+    out = json.loads(done.stdout.strip().splitlines()[-1])
+    if out["backend"] != "nccl" or not out["ok"]:
+        raise AssertionError(f"process group: {out}")
+    log(f"12.1 process group: {out['backend']}, init {out['init_s']:.3f} s, "
+        f"process {wall:.2f} s")
+    return {**out, "process_s": wall}
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _k3_tp_heads(dev) -> dict:
+    """K3 at the TP encoder's local heads, H = 10 and 5 (tp 2 and 4), in
+    bf16 and f16, on [B, S, H, D] views of a [B, S, H D] projection as the
+    TP encoder hands them over (no copy): against the plain version under
+    3b's tolerance, then kernel / plain / bound / library times."""
+    import torch
+    import torch.nn.functional as F
+
+    from eioku_tpu_torch.ops import flash_attention as fa
+
+    b, _, s_len, d = K3_SHAPE
+    out = {}
+    for tp in TP_SIZES:
+        h = K3_SHAPE[1] // tp
+        for dtype in (torch.bfloat16, torch.float16):
+            name = "bf16" if dtype == torch.bfloat16 else "f16"
+            gen = torch.Generator(device=dev).manual_seed(h)
+            sets = [tuple(torch.randn((b, s_len, h * d), generator=gen, device=dev)
+                          .to(dtype).view(b, s_len, h, d).transpose(1, 2) for _ in range(3))
+                    for _ in range(2)]
+            q, k, v = sets[0]
+            if any(fa._kernel_view(t) is not t for t in (q, k, v)):
+                raise AssertionError(f"K3 copies the TP encoder's H = {h} views")
+            got = fa.flash_attention(q, k, v)
+            want = fa.flash_attention_plain(q, k, v)
+            cancel = fa.flash_attention_plain(q.float(), k.float(), v.float().abs())
+            torch.cuda.synchronize()
+            err = k3_error(got, want, cancel)
+            max_abs = float((got.float() - want.float()).abs().max())
+            if not bool(torch.isfinite(got).all()) or not err <= 0.0:
+                raise AssertionError(f"K3 at H = {h} {name}: excess {err}")
+            nbytes = 4 * b * h * s_len * d * 2
+            ops = 4 * b * h * s_len * s_len * d
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+            row = {"max_abs_err": max_abs, "excess_over_tolerance": err, "bound_ms": bound,
+                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+                   else "operations",
+                   "ms": cuda_ms(fa.flash_attention, iters=30, args=sets),
+                   "plain_ms": cuda_ms(fa.flash_attention_plain, iters=5, warmup=1, args=sets),
+                   "library_ms": cuda_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                       q, k, v, scale=d ** -0.5), iters=30, args=sets)}
+            out[f"h{h}_{name}"] = row
+            log(f"12.2 K3 [{b}, {h}, {s_len}, {d}] {name} (TP views): max abs err "
+                f"{max_abs:.3e}, excess {err:.3e}; kernel {row['ms']:.5f} ms, plain "
+                f"{row['plain_ms']:.5f} ms, SDPA {row['library_ms']:.5f} ms, bound "
+                f"{bound:.5f} ms ({bound / row['ms']:.1%})")
+    return out
+
+
+def _tp_pp_encoders(dev, wav: str) -> dict:
+    """12.2 and 12.4: the TP encoder over [cuda:0] * tp and the PP encoder
+    over [cuda:0, cuda:0] against whisper_encode, bf16 and fp32 (TF32
+    off)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from eioku_tpu_torch.ml import transcribe
+
+    # phase 4b's large-v3 (bf16, seed 0) and an fp32 copy of its weights
+    model, cfg, _ = transcribe._load_model(
+        WHISPER_CONFIG["model"], None, "bfloat16", WHISPER_CONFIG["random_full_size"], dev)
+    m32 = copy.deepcopy(model).float()
+    m32.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.backends.cudnn.allow_tf32 = False  # the conv stem at fp32 too
+    try:
+        return _tp_pp_encoders_vs_one_device(dev, wav, model, m32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        del m32
+        torch.cuda.empty_cache()
+
+
+def _tp_pp_encoders_vs_one_device(dev, wav: str, model, m32) -> dict:
+    import torch
+
+    from eioku_tpu_torch.ml import audio_io
+    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from eioku_tpu_torch.models.whisper.model import (
+        shard_whisper,
+        whisper_encode,
+        whisper_encode_pp,
+        whisper_encode_tp,
+    )
+    from eioku_tpu_torch.ops import _cuda
+    from eioku_tpu_torch.parallel.mesh import Mesh
+
+    n_layers = model.cfg.n_enc_layers
+    windows = audio_io.split_windows(audio_io.load_wav(wav))
+    mel = log_mel_spectrogram(torch.from_numpy(np.stack([w for _, w in windows])).to(dev),
+                              n_mels=model.cfg.n_mels)
+    ref = whisper_encode(model, mel)
+    ref32 = whisper_encode(m32, mel)
+    bf16_err = _rel_err(ref, ref32)
+    tol = TP_BF16_FACTOR * bf16_err
+    log(f"12.2 bf16 one-device encoder vs fp32 on the same weights: {bf16_err:.3e} "
+        f"of max |value|; TP/PP bf16 tolerance {tol:.3e}")
+    out = {"windows": len(windows), "bf16_vs_fp32": bf16_err, "bf16_tol": tol}
+
+    def check(label: str, fn, launches_want: int) -> dict:
+        row = {}
+        for name, m, want, limit in (("bf16", model, ref, tol), ("fp32", m32, ref32, TP_FP32_TOL)):
+            fn(m)  # warm-up (shards, cuBLAS)
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            t = time.perf_counter()
+            got = fn(m)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = _cuda.launch_counts()["flash_attention"]
+            err = _rel_err(got, want)
+            log(f"{label} {name}: {err:.3e} of max |value| from one device (limit "
+                f"{limit:.1e}), {wall:.3f} s, K3 {launches} launches")
+            if not bool(torch.isfinite(got).all()) or got.shape != want.shape \
+                    or not err <= limit or launches != launches_want:
+                raise AssertionError(f"{label} {name}: err {err}, launches {launches}")
+            row[name] = {"rel_err": err, "wall_s": wall, "k3_launches": launches}
+        return row
+
+    for tp in TP_SIZES:
+        mesh = Mesh([[dev] * tp])
+        shards = {id(m): shard_whisper(m, mesh) for m in (model, m32)}
+        out[f"tp{tp}"] = check(f"12.2 TP encoder tp {tp} (shards serial on one card)",
+                               lambda m: whisper_encode_tp(shards[id(m)], mel),
+                               n_layers * tp)
+    t = time.perf_counter()
+    whisper_encode(model, mel)
+    torch.cuda.synchronize()
+    out["one_device_wall_s"] = time.perf_counter() - t
+    pp_mesh = Mesh([[dev, dev]])
+    out["pp"] = check("12.4 PP encoder, 2 stages of 16 layers, 2 microbatches",
+                      lambda m: whisper_encode_pp(m, mel, pp_mesh, n_micro=PP_MICRO),
+                      n_layers * PP_MICRO)
+    return out
+
+
+def _tp_task_rows(dev, wav: str, workdir: str) -> dict:
+    """12.3 run_task("transcription") with tensor_parallel 2 on phase 4d's
+    seeded tiny checkpoint, `local_devices` replaced by [cuda:0, cuda:0],
+    against the one-device task at fp32 (TF32 off): rows equal, the
+    confidence within 1e-3 (the JAX test's rule)."""
+    import logging
+
+    import torch
+
+    from eioku_tpu_torch.ml import transcribe
+    from eioku_tpu_torch.ml.engine import InferenceEngine
+    from eioku_tpu_torch.ops import _cuda
+    from eioku_tpu_torch.parallel import mesh
+
+    cache = os.path.join(workdir, "models")  # whisper-tiny.npz from phase 4d
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    transcribe.log.addHandler(handler)
+    level = transcribe.log.level
+    transcribe.log.setLevel(logging.INFO)
+    local_devices = mesh.local_devices
+    mesh.local_devices = lambda device=None: [dev, dev]
+    torch.backends.cudnn.allow_tf32 = False
+    engine = InferenceEngine(model_cache_dir=cache, device=dev)
+    try:
+        one = engine.run_task("transcription", wav, TINY_CONFIG)
+        _cuda.reset_launch_counts()
+        with _counting(transcribe, "whisper_encode_tp") as enc_calls:
+            t = time.perf_counter()
+            tp = engine.run_task("transcription", wav, {**TINY_CONFIG, "tensor_parallel": 2})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = _cuda.launch_counts()["flash_attention"]
+    finally:
+        mesh.local_devices = local_devices
+        torch.backends.cudnn.allow_tf32 = True
+        transcribe.log.removeHandler(handler)
+        transcribe.log.setLevel(level)
+        transcribe._tp_shards.cache_clear()
+        transcribe._load_model.cache_clear()
+    strip = lambda rs: [{**r, "payload": {k: v for k, v in r["payload"].items()  # noqa: E731
+                                          if k != "confidence"}} for r in rs]
+    conf = max((abs(a["payload"]["confidence"] - b["payload"]["confidence"])
+                for a, b in zip(tp, one)), default=0.0)
+    if "tensor-parallel transcription" not in records or not one \
+            or strip(tp) != strip(one) or not conf < 1e-3 or not enc_calls \
+            or launches != 4 * 2 * len(enc_calls):
+        raise AssertionError(f"TP task: {len(tp)} rows vs {len(one)}, confidence "
+                             f"{conf}, K3 {launches} for {len(enc_calls)} encoder calls, "
+                             f"log {records[-3:]}")
+    log(f"12.3 tiny transcription, tensor_parallel 2 over [cuda:0, cuda:0]: {len(tp)} "
+        f"rows equal to one device's (confidence within {conf:.1e}), {wall:.3f} s, "
+        f"K3 {launches} launches")
+    return {"rows": len(tp), "rows_equal": True, "confidence_max_diff": conf,
+            "wall_s": wall, "k3_launches": launches, "encoder_calls": len(enc_calls)}
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels and copies) that fn launches, from a
+    torch.profiler trace."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _tp_decode_large(dev, wav: str) -> dict:
+    """12.3 large-v3 bf16, beam 5, TP_DECODE_LEN tokens with EOT suppressed
+    (every row runs every step), on the one-device encoding of the 4 voiced
+    windows: the TP decode over [cuda:0, cuda:0] against one device (the
+    share of tokens that agree and the one-device top-2 margin where they
+    first part), walls, and device operations per step."""
+    import torch
+
+    from eioku_tpu_torch.ml import audio_io, transcribe
+    from eioku_tpu_torch.models.whisper import decoding
+    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
+    from eioku_tpu_torch.models.whisper.model import shard_whisper, whisper_encode
+    from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
+    from eioku_tpu_torch.parallel.mesh import Mesh
+
+    model, cfg, _ = transcribe._load_model(
+        WHISPER_CONFIG["model"], None, "bfloat16", WHISPER_CONFIG["random_full_size"], dev)
+    windows = audio_io.split_windows(audio_io.load_wav(wav))
+    mel = log_mel_spectrogram(torch.from_numpy(np.stack([w for _, w in windows])).to(dev),
+                              n_mels=cfg.n_mels)
+    enc = whisper_encode(model, mel)
+    tk = WhisperTokens(cfg.vocab_size)
+    sot = tk.sot_sequence("en")
+    init = torch.tensor([sot] * len(windows), device=dev)
+    sup_a, sup_b = decoding.build_suppress_masks(tk, timestamps=True)
+    sup_a[tk.eot] = True
+    shards = shard_whisper(model, Mesh([[dev, dev]]))
+    runs = {"one_device": lambda n: decoding.whisper_decode_windows(
+                model, enc, init, sup_a, sup_b, max_len=n, beam_size=5),
+            "tp2": lambda n: decoding.whisper_decode_windows_tp(
+                shards, enc, init, sup_a, sup_b, max_len=n, beam_size=5)}
+    out, rows = {}, {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows[name] = run(TP_DECODE_LEN)[0].cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        # a decode of max_len n runs n - 1 decoder steps: the difference of
+        # two lengths leaves out the set-up (cross K/V, caches)
+        per_step = (_device_ops(lambda: run(17)) - _device_ops(lambda: run(9))) / 8
+        out[name] = {"wall_s": wall, "device_ops_per_step": per_step}
+        log(f"12.3 {cfg.variant} bf16 decode {name}, beam 5, {len(windows)} windows x "
+            f"{TP_DECODE_LEN - len(sot)} tokens: {wall:.3f} s, "
+            f"{per_step:.0f} device operations a step")
+    gen = slice(len(sot), None)
+    agree = float((rows["tp2"][:, gen] == rows["one_device"][:, gen]).float().mean())
+    margin = _first_divergence_margin(rows["one_device"], rows["tp2"], model, enc, sup_a,
+                                      ("one device", "TP 2"))
+    log(f"12.3 TP 2 tokens agree with one device's at {agree:.1%} of positions")
+    return {**out, "token_agreement": agree, "first_divergence_margin": margin,
+            "windows": len(windows)}
+
+
+def _ring_and_moe(dev) -> dict:
+    """12.5 ring attention over [cuda:0] * 4 against full attention, and
+    the expert-parallel MoE over [cuda:0, cuda:0] against one device, both
+    fp32 with TF32 off; their times beside the one-device versions'."""
+    import torch
+
+    from eioku_tpu_torch.ops import moe
+    from eioku_tpu_torch.ops.flash_attention import flash_attention_plain
+    from eioku_tpu_torch.ops.ring_attention import ring_attention
+    from eioku_tpu_torch.parallel.mesh import Mesh
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device=dev) * 0.3 for _ in range(3))
+    ring_mesh = Mesh([[dev] * 4])
+    got = ring_attention(q, k, v, ring_mesh, axis_name="model")
+    want = flash_attention_plain(q, k, v)
+    ring_err = float((got - want).abs().max())
+    ring_ms = cuda_ms(lambda: ring_attention(q, k, v, ring_mesh, axis_name="model"),
+                      iters=3, warmup=1)
+    full_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), iters=3, warmup=1)
+    log(f"12.5 ring attention {list(RING_SHAPE)} fp32 over [cuda:0] * 4: max abs err "
+        f"{ring_err:.3e} from full attention; {ring_ms:.3f} ms, full {full_ms:.3f} ms")
+    if not ring_err <= RING_TOL:
+        raise AssertionError(f"ring attention: {ring_err}")
+    d, ffn, n_experts, n = MOE_SHAPE
+    params = moe.init_moe_params(d, ffn, n_experts, torch.Generator(device=dev).manual_seed(6),
+                                 device=dev)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    shards = moe.shard_moe_params(params, Mesh([[dev, dev]]))
+    got, want = moe.moe_ffn(shards, x), moe.moe_ffn(params, x)
+    moe_err = _rel_err(got, want)
+    kept = float((got.abs().sum(dim=1) > 0).float().mean())
+    moe_ms = cuda_ms(lambda: moe.moe_ffn(shards, x), iters=5, warmup=1)
+    one_ms = cuda_ms(lambda: moe.moe_ffn(params, x), iters=5, warmup=1)
+    log(f"12.5 MoE d {d}, ffn {ffn}, {n_experts} experts, {n} tokens over [cuda:0, "
+        f"cuda:0]: {moe_err:.3e} of max |value| from one device, {kept:.1%} of tokens "
+        f"kept; {moe_ms:.3f} ms, one device {one_ms:.3f} ms")
+    if not moe_err <= MOE_RTOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"MoE: {moe_err}")
+    return {"ring": {"shape": list(RING_SHAPE), "max_abs_err": ring_err, "ms": ring_ms,
+                     "full_attention_ms": full_ms},
+            "moe": {"shape": list(MOE_SHAPE), "rel_err": moe_err, "tokens_kept": kept,
+                    "ms": moe_ms, "one_device_ms": one_ms}}
+
+
+def phase_multi_device(dev, wav: str, workdir: str, card: str) -> dict:
+    """Phase 12: the process group, TP and PP Whisper, ring attention and
+    MoE; every shard of every mesh on the one card, one after the other, so
+    no time here is a speed-up."""
+    out = {"process_group": _process_group(), "k3_tp_heads": _k3_tp_heads(dev)}
+    out["encoders"] = _tp_pp_encoders(dev, wav)
+    out["tp_decode_large_v3"] = _tp_decode_large(dev, wav)
+    out["tp_task"] = _tp_task_rows(dev, wav, workdir)
+    out.update(_ring_and_moe(dev))
+    out["card"] = card
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3731,6 +4149,7 @@ def main() -> int:
         api = timed("9 API", phase_api, dev, workdir, card)
         det = timed("10 detection options", phase_detection_options, dev, workdir, card)
         ft = timed("11 fine-tune", phase_finetune, dev, workdir, card)
+        md = timed("12 multi-device", phase_multi_device, dev, wav, workdir, card)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
@@ -3759,6 +4178,11 @@ def main() -> int:
          "launches_turbo_bf16": audio["int8_transcription"]["bfloat16"]["k3_launches"],
          "launches_speculative_batch": audio["whisper_options"]["draft_model"]["k3_launches"],
          "launches_f16_transcription": tr["float16"]["k3_launches"],
+         "launches_tp2_encoder": md["encoders"]["tp2"]["bf16"]["k3_launches"],
+         "launches_tp4_encoder": md["encoders"]["tp4"]["bf16"]["k3_launches"],
+         "launches_pp_encoder": md["encoders"]["pp"]["bf16"]["k3_launches"],
+         "launches_tp_transcription": md["tp_task"]["k3_launches"],
+         "tp_heads": md["k3_tp_heads"],
          **k3},
     ]
     kernels[1]["launches_data_parallel_two_replicas"] = \
@@ -3777,6 +4201,7 @@ def main() -> int:
     print(json.dumps({"audio": audio}))
     print(json.dumps({"api": api}))
     print(json.dumps({"detection_options": det, "finetune": ft}))
+    print(json.dumps({"multi_device": md}))
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,11 +22,15 @@ Options, as in the JAX package:
 - `compute_dtype` "float16" (faster-whisper's usual GPU compute type) or
   "bfloat16" (the default) or "float32": weights and activations in that
   type, K3 in the encoder on the card in the 16-bit types;
-- `tensor_parallel` > 1: where the JAX package would shard (as many cards
-  as `tensor_parallel`, n_heads divisible by it, no draft model, no
-  conditioned decode) the port raises ModelNotAvailable, since
-  tensor-parallel Whisper is not ported; everywhere else it logs the JAX
-  package's warning and decodes on one device, as the JAX package does.
+- `tensor_parallel` N > 1: where the JAX package shards (at least N
+  devices in `parallel/mesh.local_devices`, n_heads divisible by N, no
+  draft model, no conditioned decode) the weights are cut into N Megatron
+  shards over a (1, N) mesh once per loaded model and kept with it, and
+  every batch goes through `whisper_encode_tp` (K3 on each shard's heads)
+  and `whisper_decode_windows_tp`; int8 then keeps 16-bit weights, with the
+  JAX package's warning. Everywhere else the JAX package's warning and the
+  one-device decode. One card listed N times runs the shards one after
+  the other.
 The options that change the decode take effect only with a checkpoint.
 
 Checkpoints: `{cache_dir}/whisper-{variant}.npz|.pt|.bin`. Without one, the
@@ -50,14 +54,17 @@ from eioku_tpu_torch.models.whisper.align import word_timestamps
 from eioku_tpu_torch.models.whisper.decoding import (
     build_suppress_masks,
     whisper_decode_windows,
+    whisper_decode_windows_tp,
 )
 from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
 from eioku_tpu_torch.models.whisper.model import (
     WhisperConfig,
     cross_attention_alignment,
     init_whisper,
+    shard_whisper,
     whisper_detect_language,
     whisper_encode,
+    whisper_encode_tp,
 )
 from eioku_tpu_torch.models.whisper.speculative import (
     score_sequences,
@@ -70,6 +77,7 @@ from eioku_tpu_torch.models.whisper.tokenizer import (
     WhisperTokens,
 )
 from eioku_tpu_torch.models.whisper.weights import load_whisper_checkpoint
+from eioku_tpu_torch.parallel import mesh as mesh_lib
 from eioku_tpu_torch.utils import progress
 from eioku_tpu_torch.utils.device import resolve_device
 
@@ -115,6 +123,13 @@ def _load_model(variant: str, cache_dir: str | None,
     if int8:
         quantize_linears(model)
     return model, cfg, pretrained
+
+
+@lru_cache(maxsize=2)
+def _tp_shards(model, devices: tuple[torch.device, ...]):
+    """The model's Megatron shards over a (1, len(devices)) mesh, made once
+    per loaded model and devices."""
+    return shard_whisper(model, mesh_lib.Mesh([list(devices)]))
 
 
 def _normalize_variant(model: str) -> str:
@@ -234,9 +249,6 @@ def run_transcription(video_path: str, config: dict,
     model, cfg, pretrained = _load_model(
         variant, model_cache_dir, load_dtype,
         bool(config.get("random_full_size", False)), dev)
-    if load_dtype == "int8":
-        log.info("int8-quantized whisper serving",
-                 extra={"compute_type": config.get("compute_dtype", "int8")})
     tokens = WhisperTokens(cfg.vocab_size)
     text_decoder = WhisperTextDecoder.from_cache_dir(model_cache_dir,
                                                      cfg.vocab_size)
@@ -247,18 +259,6 @@ def run_transcription(video_path: str, config: dict,
 
     def mel_of(wav: np.ndarray) -> torch.Tensor:
         return log_mel_spectrogram(torch.from_numpy(wav).to(dev), n_mels=cfg.n_mels)
-
-    if language is None and pretrained:
-        # auto-detect from the first voiced window
-        first_enc = whisper_encode(model, mel_of(windows[0][1][None]))
-        language = LANGUAGES[int(whisper_detect_language(model, first_enc)[0])]
-        log.info("auto-detected language", extra={"language": language})
-    task = str(config.get("task", "transcribe"))
-    if task not in ("transcribe", "translate"):
-        log.warning("unknown whisper task %r; transcribing", task)
-        task = "transcribe"
-    sot = tokens.sot_sequence(language or "en", timestamps=use_timestamps,
-                              task=task)
 
     # initial prompt and hotwords ride as sot_prev left context, capped at
     # half the 448-token decoder context minus the sot_prev slot
@@ -274,9 +274,6 @@ def run_transcription(video_path: str, config: dict,
         if not prompt_ids:
             log.warning("initial_prompt/custom_vocabulary set but no "
                         "vocab.json under the model cache; prompt disabled")
-    init_seq = ([tokens.sot_prev] + prompt_ids if prompt_ids else []) + sot
-    sot_index = len(init_seq) - len(sot)
-
     # speculative decoding: a draft checkpoint proposes, this model verifies;
     # the output is this model's own greedy decode. Eligible only for plain
     # greedy decoding (the config checks come before the draft's load)
@@ -298,19 +295,56 @@ def run_transcription(video_path: str, config: dict,
                         "pretrained same-vocab draft, beam_size=1, "
                         "timestamps off, and no initial prompt; using the "
                         "standard decode")
+    # previous-text conditioning runs the serial one-device decode
     conditioned = (bool(config.get("condition_on_previous_text", False))
                    and pretrained)
     tp = int(config.get("tensor_parallel", 1))
+    shards = None
     if tp > 1:
-        if (torch.cuda.device_count() >= tp and cfg.n_heads % tp == 0
+        if (len(mesh_lib.local_devices(dev)) >= tp and cfg.n_heads % tp == 0
                 and spec_draft is None and not conditioned):
-            # where the JAX package would shard the weights over tp devices
-            raise ModelNotAvailable("tensor_parallel > 1 (tensor-parallel whisper) "
-                                    "is not ported to eioku_tpu_torch yet")
-        log.warning("tensor_parallel=%d needs >=%d devices, "
-                    "n_heads %% tp == 0, no draft_model, and "
-                    "condition_on_previous_text off (serial decode); "
-                    "falling back to single-device decode", tp, tp)
+            if load_dtype == "int8":
+                log.warning("compute_dtype int8 is single-device; the "
+                            "tensor_parallel path keeps bf16 weights")
+                model, cfg, pretrained = _load_model(
+                    variant, model_cache_dir, "bfloat16",
+                    bool(config.get("random_full_size", False)), dev)
+            # cut the weights once per loaded model: re-sharding on every
+            # batch would copy the whole tree to the devices each time
+            shards = _tp_shards(model, tuple(mesh_lib.local_devices(dev)[:tp]))
+            log.info("tensor-parallel transcription", extra={"tp": tp})
+        else:
+            log.warning("tensor_parallel=%d needs >=%d devices, "
+                        "n_heads %% tp == 0, no draft_model, and "
+                        "condition_on_previous_text off (serial decode); "
+                        "falling back to single-device decode", tp, tp)
+    if load_dtype == "int8" and shards is None:
+        log.info("int8-quantized whisper serving",
+                 extra={"compute_type": config.get("compute_dtype", "int8")})
+
+    if language is None and pretrained:
+        # auto-detect from the first voiced window
+        first_enc = whisper_encode(model, mel_of(windows[0][1][None]))
+        language = LANGUAGES[int(whisper_detect_language(model, first_enc)[0])]
+        log.info("auto-detected language", extra={"language": language})
+    task = str(config.get("task", "transcribe"))
+    if task not in ("transcribe", "translate"):
+        log.warning("unknown whisper task %r; transcribing", task)
+        task = "transcribe"
+    sot = tokens.sot_sequence(language or "en", timestamps=use_timestamps,
+                              task=task)
+    init_seq = ([tokens.sot_prev] + prompt_ids if prompt_ids else []) + sot
+    sot_index = len(init_seq) - len(sot)
+
+    def encode(mel: torch.Tensor) -> torch.Tensor:
+        return whisper_encode(model, mel) if shards is None else whisper_encode_tp(shards, mel)
+
+    def decode(enc: torch.Tensor, init: torch.Tensor, **kw):
+        if shards is None:
+            return whisper_decode_windows(model, enc, init, suppress_always,
+                                          suppress_begin, **kw)
+        return whisper_decode_windows_tp(shards, enc, init, suppress_always,
+                                         suppress_begin, **kw)
 
     batch_size = int(config.get("batch_size", 8))
     max_tokens = int(config.get("max_tokens", 128))
@@ -414,7 +448,7 @@ def run_transcription(video_path: str, config: dict,
         wav = np.stack([c[1] for c in chunk] +
                        [np.zeros(SAMPLES_PER_WINDOW, np.float32)] * pad)
         mel = mel_of(wav)
-        enc = whisper_encode(model, mel)
+        enc = encode(mel)
         init = torch.tensor([init_seq] * batch_size, dtype=torch.long, device=dev)
         if spec_draft is not None:
             d_enc = whisper_encode(spec_draft, mel)
@@ -427,8 +461,7 @@ def run_transcription(video_path: str, config: dict,
             log.info("speculative decode",
                      extra={"accept_rate": round(accept_rate, 3)})
         else:
-            out, avg_lp, no_speech = whisper_decode_windows(
-                model, enc, init, suppress_always, suppress_begin, **decode_kw)
+            out, avg_lp, no_speech = decode(enc, init, **decode_kw)
         out = out.cpu().numpy()
         avg_lp = avg_lp.cpu().numpy()
         no_speech = no_speech.cpu().numpy()
@@ -449,9 +482,8 @@ def run_transcription(video_path: str, config: dict,
             # temperature and adopt the new rows for the failed windows only;
             # the last rung is adopted unconditionally (the gate still applies)
             gen = torch.Generator(device=dev).manual_seed((i << 8) | ti)
-            out_t, lp_t, _ = whisper_decode_windows(
-                model, enc, init, suppress_always, suppress_begin, **decode_kw,
-                sample=True, temperature=temp, generator=gen)
+            out_t, lp_t, _ = decode(enc, init, **decode_kw, sample=True,
+                                    temperature=temp, generator=gen)
             out[failed] = out_t.cpu().numpy()[failed]
             avg_lp[failed] = lp_t.cpu().numpy()[failed]
             failed = [j for j in failed if _fallback_needed(j)]

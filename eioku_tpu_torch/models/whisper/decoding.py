@@ -28,10 +28,15 @@ import torch
 
 from eioku_tpu_torch.models.whisper.model import (
     Whisper,
+    WhisperShards,
     decoder_step,
+    decoder_step_tp,
     precompute_cross_kv,
+    precompute_cross_kv_tp,
+    shard_whisper,
 )
 from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
+from eioku_tpu_torch.parallel.mesh import Mesh
 
 # Token ids of sounds/symbols that never occur in speech in the multilingual
 # Whisper vocabulary: the published `suppress_tokens` list (ids below the
@@ -121,6 +126,11 @@ def _top_k_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _each(fn, x):
+    """fn(x), or fn of each entry of a per-shard list."""
+    return [fn(t) for t in x] if isinstance(x, list) else fn(x)
+
+
 @torch.no_grad()
 def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
                            initial_tokens: torch.Tensor,
@@ -131,7 +141,9 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
                            max_initial_ts_index: int = 50,
                            sot_index: int = 0, sample: bool = False,
                            temperature: float = 1.0,
-                           generator: torch.Generator | None = None):
+                           generator: torch.Generator | None = None,
+                           step_fn=None, cross_kv_fn=None,
+                           kv_dim: int | None = None):
     """Decode a batch of encoded 30 s windows with beam search + logit rules.
 
     enc_out [B, 1500, d]; initial_tokens [B, n_init] SOT sequences.
@@ -142,6 +154,11 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     sampling chains at `temperature` (faster-whisper's `best_of`), drawn
     from `generator` (on enc_out's device), which must be given; ranking
     still picks the chain with the best average unscaled logprob.
+    step_fn / cross_kv_fn / kv_dim: the tensor-parallel decode
+    (`whisper_decode_windows_tp`) swaps in `decoder_step_tp` with per-shard
+    lists of cross K/V and of caches of kv_dim features (each cache on its
+    shard's device); the defaults are the one-device `decoder_step`,
+    `precompute_cross_kv` and the model's width.
     Returns (tokens [B, max_len] int64, the best beam per window, prompt
     included and EOT-padded; avg_logprob [B] float32 over generated tokens
     incl. EOT; no_speech_prob [B] float32)."""
@@ -157,17 +174,20 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     suppress_always = suppress_always.to(dev)
     suppress_begin = suppress_begin.to(dev)
 
+    step_fn = step_fn or decoder_step
     # [L, B, S, d]: beams fold into the token batch, cross-KV stays one row
     # per window (decoder_step groups each window's k beams onto it)
-    cross_k, cross_v = precompute_cross_kv(model, enc_out)
+    cross_k, cross_v = (cross_kv_fn or precompute_cross_kv)(model, enc_out)
     tokens = torch.full((bk, max_len), eot, dtype=torch.long, device=dev)
     tokens[:, :n_init] = initial_tokens.to(dev, torch.long).repeat_interleave(k, 0)
-    self_k = torch.zeros((cfg.n_dec_layers, bk, max_len, cfg.dim),
-                         dtype=enc_out.dtype, device=dev)
-    self_v = torch.zeros_like(self_k)
+
+    def new_cache(ck: torch.Tensor) -> torch.Tensor:  # beside its cross K
+        return torch.zeros((cfg.n_dec_layers, bk, max_len, kv_dim or cfg.dim),
+                           dtype=enc_out.dtype, device=ck.device)
+    self_k, self_v = _each(new_cache, cross_k), _each(new_cache, cross_k)
     no_speech = torch.zeros((bk,), dtype=torch.float32, device=dev)
     for pos in range(n_init - 1):  # prefill: all but the last prompt token
-        logits = decoder_step(model, cross_k, cross_v, tokens, self_k, self_v, pos)
+        logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos)
         if pos == sot_index:
             no_speech = torch.softmax(logits.float(), dim=-1)[:, tk.no_speech]
 
@@ -184,8 +204,7 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
 
     pos = n_init - 1
     while pos < max_len - 1 and not bool(finished.all()):
-        logits = decoder_step(model, cross_k, cross_v, tokens, self_k, self_v,
-                              pos).float()
+        logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos).float()
         logits = logits.masked_fill(suppress_always[None], NEG)
         if pos == n_init - 1:
             logits = logits.masked_fill(suppress_begin[None], NEG)
@@ -214,8 +233,8 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
             if k > 1:  # greedy (k = 1) needs no beam reordering
                 flat_src = (rows[:, None] * k + src_beam).reshape(bk)
                 tokens = tokens.index_select(0, flat_src)
-                self_k = self_k.index_select(1, flat_src)
-                self_v = self_v.index_select(1, flat_src)
+                self_k, self_v = (_each(lambda c: c.index_select(1, flat_src.to(c.device)),
+                                        cache) for cache in (self_k, self_v))
                 no_speech = no_speech.index_select(0, flat_src)
                 n_gen = n_gen.gather(1, src_beam)
                 was_finished = finished.gather(1, src_beam)
@@ -233,3 +252,25 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     best = rank.argmax(dim=1)  # [B], first maximum on ties
     best_tokens = tokens.reshape(b, k, max_len)[rows, best]
     return best_tokens, avg_lp[rows, best], no_speech.reshape(b, k)[:, 0]
+
+
+@torch.no_grad()
+def whisper_decode_windows_tp(model: Whisper | WhisperShards, enc_out: torch.Tensor,
+                              initial_tokens: torch.Tensor,
+                              suppress_always: torch.Tensor,
+                              suppress_begin: torch.Tensor,
+                              mesh: Mesh | None = None, axis: str = "model",
+                              **kwargs):
+    """Tensor-parallel `whisper_decode_windows`: the KV-cached beam loop with
+    Megatron-sharded decoder weights (`decoder_step_tp`: caches of d/tp
+    features per shard, one psum per residual branch and one for the tied
+    logits). Beam, top-k and sampling logic run once on the summed logits,
+    which every shard has alike. model: a Whisper (sharded over `mesh` for
+    this call) or its `WhisperShards`, reused across calls (the temperature
+    ladder's five decodes share one set). Takes whisper_decode_windows'
+    keyword arguments; n_heads must divide by the axis size."""
+    shards = shard_whisper(model, mesh, axis)
+    return whisper_decode_windows(
+        shards.lines[0], enc_out, initial_tokens, suppress_always, suppress_begin,
+        step_fn=decoder_step_tp, cross_kv_fn=precompute_cross_kv_tp,
+        kv_dim=shards.cfg.dim // shards.tp, **kwargs)

@@ -23,13 +23,18 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from eioku_tpu_torch.models.layers import LayerNorm, Linear, gelu, merge_heads, split_heads
 from eioku_tpu_torch.ops.flash_attention import flash_attention
+from eioku_tpu_torch.parallel.collectives import on
+from eioku_tpu_torch.parallel.mesh import Mesh, shard_slice
+from eioku_tpu_torch.parallel.pipeline import pipeline_transformer_layers
 
 # n_mels, d_model, n_heads, n_enc_layers, n_dec_layers, vocab
 WHISPER_VARIANTS = {
@@ -254,20 +259,31 @@ def _conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
     return out + conv.bias.to(x.dtype)[:, None]
 
 
+def _encoder_stem(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
+    """The two convs and the sinusoidal positions: mel [B, n_mels, T] ->
+    [B, T/2, d] in the compute type."""
+    enc = model.encoder
+    x = mel.to(model.cfg.dtype)
+    x = gelu(_conv1d(x, enc.conv1))
+    x = gelu(_conv1d(x, enc.conv2)).transpose(1, 2)  # [B, S, d]
+    pos = torch.from_numpy(sinusoids(x.shape[1], x.shape[2])).to(x.device, x.dtype)
+    return x + pos[None]
+
+
+def _enc_layer(block: ResidualAttentionBlock, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """One encoder block: pre-LN self-attention (K3) and MLP residuals."""
+    x = x + _self_attn_flash(block.attn_ln(x), block.attn, n_heads)
+    return x + _mlp(block.mlp_ln(x), block)
+
+
 @torch.no_grad()
 def whisper_encode(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
     """mel [B, n_mels, 3000] -> encoder states [B, 1500, d] in the compute
     type."""
-    cfg, enc = model.cfg, model.encoder
-    x = mel.to(cfg.dtype)
-    x = gelu(_conv1d(x, enc.conv1))
-    x = gelu(_conv1d(x, enc.conv2)).transpose(1, 2)  # [B, S, d]
-    pos = torch.from_numpy(sinusoids(x.shape[1], x.shape[2])).to(x.device, x.dtype)
-    x = x + pos[None]
-    for block in enc.blocks:
-        x = x + _self_attn_flash(block.attn_ln(x), block.attn, cfg.n_heads)
-        x = x + _mlp(block.mlp_ln(x), block)
-    return enc.ln_post(x)
+    x = _encoder_stem(model, mel)
+    for block in model.encoder.blocks:
+        x = _enc_layer(block, x, model.cfg.n_heads)
+    return model.encoder.ln_post(x)
 
 
 # -- decoder --------------------------------------------------------------------------
@@ -420,3 +436,224 @@ def decoder_step(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
         x = x + _mlp(block.mlp_ln(x), block)
     return _logits(model, dec.ln(x)[:, 0])
 
+
+
+# -- tensor and pipeline parallelism ----------------------------------------------------
+
+
+def _tp_dim(name: str) -> int | None:
+    """The dimension of a Whisper parameter (torch's [out, in] layout) that
+    a Megatron shard splits, the JAX package's `shard_whisper_specs` on the
+    port's names: query/key/value/mlp.0 split the output features (column,
+    with the query/value/mlp.0 biases), out/mlp.2 the input features (row;
+    their biases are added once, after the sum), the decoder's token
+    embedding its features (it is the input table and the tied output
+    projection). Convs, layer norms, the positional embedding and the row
+    biases replicate (None)."""
+    if name == "decoder.token_embedding.weight":
+        return 1
+    if name.endswith(("query.weight", "key.weight", "value.weight", "mlp.0.weight",
+                      "query.bias", "value.bias", "mlp.0.bias")):
+        return 0
+    if name.endswith(("out.weight", "mlp.2.weight")):
+        return 1
+    return None
+
+
+def _whisper_shard(model: Whisper, index: int, tp: int, dev: torch.device) -> Whisper:
+    """Shard `index` of `tp`: a Whisper module with the local widths on
+    `dev`. On the model's own device its tensors are views of the model's."""
+    with torch.device("meta"):
+        shard = Whisper(model.cfg)
+    for name, p in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        part = shard_slice(p.detach(), _tp_dim(name), index, tp).to(dev)
+        setattr(shard.get_submodule(owner), leaf, nn.Parameter(part, requires_grad=False))
+    if any(t.is_meta for t in shard.parameters()):
+        raise ValueError("tensor-parallel shards need float linears (not int8)")
+    return shard.eval()
+
+
+class ShardLine(NamedTuple):
+    """One line of a sharded Whisper: its config, the local shards in the
+    line's order, and the line's collectives (parallel/collectives.py)."""
+    cfg: WhisperConfig
+    shards: list
+    comm: object
+
+
+class WhisperShards:
+    """A Whisper cut into Megatron shards over `axis` of a mesh, once:
+    `lines[i]` holds the local shards of the mesh's i-th line along the
+    axis (all of them in one process; this rank's over a process group).
+    Shards on one device share its copy."""
+
+    def __init__(self, model: Whisper, mesh: Mesh, axis: str = "model"):
+        tp = mesh.shape[axis]
+        if model.cfg.n_heads % tp:
+            raise ValueError(f"n_heads {model.cfg.n_heads} must divide tp size {tp}")
+        self.cfg, self.mesh, self.axis, self.tp = model.cfg, mesh, axis, tp
+        grid = mesh.place(lambda index, dev: _whisper_shard(model, index, tp, dev), axis)
+        self.lines = [ShardLine(model.cfg, shards, comm) for shards, comm in
+                      zip(mesh.line_entries(grid, axis), mesh.lines(axis))]
+
+
+def shard_whisper(model: Whisper | WhisperShards, mesh: Mesh | None,
+                  axis: str = "model") -> WhisperShards:
+    """The model's Megatron shards over `axis` of `mesh` (n_heads must
+    divide by the axis size: ValueError otherwise); shards pass through."""
+    if isinstance(model, WhisperShards):
+        return model
+    if mesh is None:
+        raise ValueError("an unsharded model needs a mesh")
+    return WhisperShards(model, mesh, axis)
+
+
+def _row_partial(h: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """A row-parallel linear's partial product, accumulated in fp32 and
+    rounded to h's type; its bias is added after the sum."""
+    return F.linear(h, lin.weight.to(h.dtype))
+
+
+def _each_shard(line: ShardLine, fn, *per_shard) -> list:
+    """fn(k, shard, *per_shard[..][k]) for every local shard k, each under
+    its device."""
+    out = []
+    for k, (shard, dev) in enumerate(zip(line.shards, line.comm.devices)):
+        with on(dev):
+            out.append(fn(k, shard, *(xs[k] for xs in per_shard)))
+    return out
+
+
+@torch.no_grad()
+def whisper_encode_tp(model: Whisper | WhisperShards, mel: torch.Tensor,
+                      mesh: Mesh | None = None, axis: str = "model") -> torch.Tensor:
+    """Tensor-parallel `whisper_encode`: Megatron column/row splits, K3 on
+    each shard's local heads (n_heads / tp of them), one psum per residual
+    branch, the row-parallel partials rounded to the compute type before it.
+    model: a Whisper (sharded over `mesh` for this call) or its
+    `WhisperShards`. The batch splits over the mesh's other axis. Returns
+    [B, 1500, d] on mel's device."""
+    shards = shard_whisper(model, mesh, axis)
+    lines = shards.lines
+    if mel.shape[0] % len(lines):
+        raise ValueError(f"batch {mel.shape[0]} must divide by {len(lines)} mesh lines")
+    per = mel.shape[0] // len(lines)
+    outs = [_encode_tp_line(line, mel[i * per:(i + 1) * per])
+            for i, line in enumerate(lines)]
+    return torch.cat([o.to(mel.device) for o in outs])
+
+
+def _encode_tp_line(line: ShardLine, mel: torch.Tensor) -> torch.Tensor:
+    heads = line.cfg.n_heads // line.comm.size
+    xs = _each_shard(line, lambda k, s: _encoder_stem(s, mel.to(line.comm.devices[k])))
+
+    def attn_part(k, s, x, li):
+        blk = s.encoder.blocks[li]
+        h = blk.attn_ln(x)
+        at = blk.attn
+        b, n, _ = h.shape
+        o = flash_attention(split_heads(at.query(h), heads), split_heads(at.key(h), heads),
+                            split_heads(at.value(h), heads))
+        return _row_partial(o.transpose(1, 2).reshape(b, n, -1), at.out)
+
+    def mlp_part(k, s, x, li):
+        blk = s.encoder.blocks[li]
+        return _row_partial(gelu(blk.mlp[0](blk.mlp_ln(x))), blk.mlp[2])
+
+    for li in range(line.cfg.n_enc_layers):
+        for part, bias in ((attn_part, lambda blk: blk.attn.out.bias),
+                           (mlp_part, lambda blk: blk.mlp[2].bias)):
+            sums = line.comm.psum(_each_shard(line, lambda k, s, x: part(k, s, x, li), xs))
+            xs = [x + sm + bias(s.encoder.blocks[li]).to(x.dtype)
+                  for x, sm, s in zip(xs, sums, line.shards)]
+    with on(line.comm.devices[0]):
+        return line.shards[0].encoder.ln_post(xs[0])
+
+
+@torch.no_grad()
+def whisper_encode_pp(model: Whisper, mel: torch.Tensor, mesh: Mesh,
+                      n_micro: int | None = None, axis: str = "model") -> torch.Tensor:
+    """Pipeline-parallel `whisper_encode`: the encoder's layers span the
+    stages of `axis` (parallel/pipeline.py's GPipe schedule, K3 in every
+    layer on each microbatch); the conv stem, positions and the final layer
+    norm run on the model's device. n_enc_layers must divide by the axis
+    size."""
+    x = _encoder_stem(model, mel)
+    x = pipeline_transformer_layers(
+        list(model.encoder.blocks), x,
+        lambda block, h: _enc_layer(block, h, model.cfg.n_heads),
+        mesh, axis=axis, n_micro=n_micro)
+    return model.encoder.ln_post(x)
+
+
+@torch.no_grad()
+def precompute_cross_kv_tp(line: ShardLine, enc_out: torch.Tensor):
+    """Each shard's cross-attention K/V: 2 lists of [L, B, S_enc, d/tp]."""
+    def kv(k, s):
+        e = enc_out.to(line.comm.devices[k])
+        blocks = s.decoder.blocks
+        return (torch.stack([b.cross_attn.key(e) for b in blocks]),
+                torch.stack([b.cross_attn.value(e) for b in blocks]))
+    ks, vs = zip(*_each_shard(line, kv))
+    return list(ks), list(vs)
+
+
+@torch.no_grad()
+def decoder_step_tp(line: ShardLine, cross_k: list, cross_v: list,
+                    tokens: torch.Tensor, self_k: list, self_v: list,
+                    pos: int) -> torch.Tensor:
+    """`decoder_step` over Megatron shards: per-shard lists of caches
+    [L, B, max_len, d/tp] (written in place) and cross K/V; the token
+    embedding's feature slices are all-gathered, each residual branch sums
+    its row-parallel partials once (then + bias), and the tied output
+    projection contracts each shard's feature slice of x and sums fp32
+    partial logits. Activations stay full width on every shard, so the
+    logits are the same on all. Returns logits [B, vocab] fp32 on tokens'
+    device."""
+    cfg, comm = line.cfg, line.comm
+    heads = cfg.n_heads // comm.size
+    b = tokens.shape[0]
+    tok = tokens[:, pos]
+    embs = comm.all_gather(_each_shard(
+        line, lambda k, s: s.decoder.token_embedding.weight[tok.to(comm.devices[k])][:, None]))
+    xs = [(e + s.decoder.positional_embedding[pos][None, None]).to(cfg.dtype)
+          for e, s in zip(embs, line.shards)]
+
+    def self_part(k, s, x, li):
+        blk = s.decoder.blocks[li]
+        at = blk.attn
+        h = blk.attn_ln(x)
+        self_k[k][li, :, pos] = at.key(h)[:, 0]
+        self_v[k][li, :, pos] = at.value(h)[:, 0]
+        attn = _attend(at.query(h), self_k[k][li, :, :pos + 1],
+                       self_v[k][li, :, :pos + 1], heads)
+        return _row_partial(attn, at.out)
+
+    def cross_part(k, s, x, li):
+        blk = s.decoder.blocks[li]
+        q = blk.cross_attn.query(blk.cross_attn_ln(x))
+        if cross_k[k].shape[1] == b:
+            cross = _attend(q, cross_k[k][li], cross_v[k][li], heads)
+        else:  # beams share encoder rows
+            cross = _attend_grouped(q, cross_k[k][li], cross_v[k][li], heads)
+        return _row_partial(cross, blk.cross_attn.out)
+
+    def mlp_part(k, s, x, li):
+        blk = s.decoder.blocks[li]
+        return _row_partial(gelu(blk.mlp[0](blk.mlp_ln(x))), blk.mlp[2])
+
+    for li in range(cfg.n_dec_layers):
+        for part, bias in ((self_part, lambda blk: blk.attn.out.bias),
+                           (cross_part, lambda blk: blk.cross_attn.out.bias),
+                           (mlp_part, lambda blk: blk.mlp[2].bias)):
+            sums = comm.psum(_each_shard(line, lambda k, s, x: part(k, s, x, li), xs))
+            xs = [x + (sm + bias(s.decoder.blocks[li]).to(x.dtype))
+                  for x, sm, s in zip(xs, sums, line.shards)]
+
+    def logits_part(k, s, x):
+        emb = s.decoder.token_embedding.weight  # [vocab, d/tp]
+        d_local = emb.shape[1]
+        x_slice = s.decoder.ln(x)[:, 0, comm.indices[k] * d_local:(comm.indices[k] + 1) * d_local]
+        return x_slice.float() @ emb.float().T
+    return comm.psum(_each_shard(line, logits_part, xs))[0].to(tokens.device)

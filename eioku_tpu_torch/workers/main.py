@@ -6,9 +6,11 @@ Port of eioku_tpu/workers/main.py: queue `ml_jobs`, WORKER_MAX_JOBS default
 engine, the semantic and visual indexes and the reranker run on CUDA;
 EIOKU_FORCE_CPU=1 puts them on the CPU instead (tests, hosts without a
 card). Without that variable, a host without CUDA makes the worker raise at
-start: it never carries on on the CPU. Multi-host start-up (the JAX
-package's initialize_distributed) is not ported. As in the JAX
-package, the worker only serves the queue: merging the configured scan paths
+start: it never carries on on the CPU. At start it joins a multi-host
+process group when EIOKU_COORDINATOR (host:port), EIOKU_NUM_PROCESSES and
+EIOKU_PROCESS_ID say so (parallel/mesh.py initialize_distributed: NCCL on
+the card, gloo under EIOKU_FORCE_CPU=1; a no-op without a coordinator). As
+in the JAX package, the worker only serves the queue: merging the configured scan paths
 and discovering videos at start is the API's start-up work
 (api/app.py create_app).
 
@@ -23,6 +25,7 @@ import asyncio
 from eioku_tpu_torch.api.app import build_context
 from eioku_tpu_torch.config.settings import load_config
 from eioku_tpu_torch.ml.engine import InferenceEngine
+from eioku_tpu_torch.parallel.mesh import initialize_distributed
 from eioku_tpu_torch.queue.queue import SqliteJobQueue
 from eioku_tpu_torch.queue.worker import Worker, WorkerSettings
 from eioku_tpu_torch.utils.device import entry_point_device
@@ -65,6 +68,7 @@ def main() -> None:
     args = parser.parse_args()
 
     setup_logging("eioku-ml-worker")
+    initialize_distributed()  # multi-host no-op unless EIOKU_COORDINATOR is set
     config = load_config(args.config)
     if args.db:
         config.database_url = args.db

@@ -113,7 +113,8 @@ CHANGED = {
                     "semantic or visual search is on"),
     "workers/main.py": ({"build_worker", "main"},
                         "EIOKU_FORCE_CPU picks the engine's and the indexes' "
-                        "device; no initialize_distributed"),
+                        "device and the process group's backend (the port's "
+                        "initialize_distributed)"),
     "cli.py": ({"_ctx"}, "_ctx takes the API's device rule"),
 }
 

@@ -22,7 +22,7 @@ from eioku_tpu.ml import transcribe as jax_transcribe
 from eioku_tpu.models.whisper.model import WhisperConfig as JaxWhisperConfig
 from eioku_tpu.models.whisper.model import init_whisper_params
 from eioku_tpu_torch.ml import audio_io, transcribe
-from eioku_tpu_torch.ml.engine import InferenceEngine, ModelNotAvailable
+from eioku_tpu_torch.ml.engine import InferenceEngine
 from eioku_tpu_torch.models.whisper.model import WhisperConfig
 from eioku_tpu_torch.models.whisper.weights import from_jax_params
 from test_torch_ocr import single_torch_thread
@@ -221,14 +221,85 @@ def test_tensor_parallel_falls_back_like_jax(audio_dir, pretrained, caplog):
     np.testing.assert_allclose(conf_g, conf_w, rtol=0, atol=1e-4)
 
 
-def test_tensor_parallel_refused_where_jax_would_shard(audio_dir, monkeypatch):
-    # two cards (stubbed, hazard y), tiny's 6 heads divisible by 2, no draft,
-    # no conditioned decode: the JAX package would shard, the port refuses
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(ModelNotAvailable, match="tensor_parallel"):
-        transcribe.run_transcription(str(audio_dir / "clip.wav"),
-                                     {"model": "tiny", "tensor_parallel": 2},
-                                     device="cpu")
+@pytest.fixture()
+def cpu8(monkeypatch):
+    """The port's device list: eight CPU entries, as conftest gives JAX."""
+    from eioku_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * 8)
+    transcribe._tp_shards.cache_clear()
+
+
+TP_CONFIG = {"model": "tiny", "compute_dtype": "float32", "language": "en",
+             "temperatures": [], "no_speech_threshold": 2.0, "max_tokens": 10,
+             "batch_size": 1, "beam_size": 2, "tensor_parallel": 2}
+
+
+def _spy(monkeypatch, name: str) -> list:
+    calls, fn = [], getattr(transcribe, name)
+
+    def spied(*a, **kw):
+        calls.append(a[0])
+        return fn(*a, **kw)
+    monkeypatch.setattr(transcribe, name, spied)
+    return calls
+
+
+def test_tensor_parallel_shards_like_jax(audio_dir, pretrained, cpu8, caplog, monkeypatch):
+    """tensor_parallel 2 with two devices (eight CPU entries): both packages
+    shard the tree over a (1, 2) mesh, encode and decode through it, and
+    log it. Rows equal; the confidence, exp(avg logprob) of psum-reduced
+    logits, within 1e-3 (the JAX test's rule,
+    tests/test_parallel.py::test_run_transcription_tensor_parallel). The
+    weights are cut once for the job's two batches."""
+    wav, cache = str(audio_dir / "clip.wav"), str(audio_dir)
+    with caplog.at_level("INFO", logger="eioku_tpu.ml.transcribe"):
+        want = jax_transcribe.run_transcription(wav, TP_CONFIG, model_cache_dir=cache)
+    assert "tensor-parallel transcription" in caplog.text
+    caplog.clear()
+    shardings = _spy(monkeypatch, "shard_whisper")
+    encodes = _spy(monkeypatch, "whisper_encode_tp")
+    decodes = _spy(monkeypatch, "whisper_decode_windows_tp")
+    with caplog.at_level("INFO", logger=transcribe.log.name):
+        got = InferenceEngine(model_cache_dir=cache, device="cpu").run_task(
+            "transcription", wav, TP_CONFIG)
+    assert "tensor-parallel transcription" in caplog.text
+    assert len(shardings) == 1 and len(encodes) == len(decodes) == 2
+    assert all(s is encodes[0] for s in encodes + decodes)
+    rows_w, conf_w = _split_confidence(want)
+    rows_g, conf_g = _split_confidence(got)
+    assert rows_g == rows_w and len(got) > 0
+    np.testing.assert_allclose(conf_g, conf_w, rtol=0, atol=1e-3)
+
+
+def test_tensor_parallel_int8_keeps_16_bit_weights_like_jax(audio_dir, jax_tiny, port_tiny,
+                                                            cpu8, caplog, monkeypatch):
+    """int8 with tensor_parallel where both packages shard: the JAX
+    package's warning, and the weights are loaded 16-bit (bfloat16) for the
+    shards instead of int8. Both packages load the seeded fp32 tree for
+    every request, so their rows must agree as in the test above."""
+    loads = []
+
+    def load(variant, cache_dir, compute_dtype, *a, **kw):
+        loads.append(compute_dtype)
+        return port_tiny, WhisperConfig("tiny"), True
+    monkeypatch.setattr(jax_transcribe, "_load_model", lambda *a, **kw: (*jax_tiny, True))
+    monkeypatch.setattr(transcribe, "_load_model", load)
+    cfg = {**TP_CONFIG, "compute_dtype": "int8"}
+    wav, cache = str(audio_dir / "clip.wav"), str(audio_dir)
+    with caplog.at_level("WARNING", logger="eioku_tpu.ml.transcribe"):
+        want = jax_transcribe.run_transcription(wav, cfg, model_cache_dir=cache)
+    assert "compute_dtype int8 is single-device" in caplog.text
+    caplog.clear()
+    with caplog.at_level("INFO", logger=transcribe.log.name):
+        got = transcribe.run_transcription(wav, cfg, model_cache_dir=cache, device="cpu")
+    assert "compute_dtype int8 is single-device" in caplog.text
+    assert "int8-quantized whisper serving" not in caplog.text
+    assert loads == ["int8", "bfloat16"]
+    rows_w, conf_w = _split_confidence(want)
+    rows_g, conf_g = _split_confidence(got)
+    assert rows_g == rows_w and len(got) > 0
+    np.testing.assert_allclose(conf_g, conf_w, rtol=0, atol=1e-3)
 
 
 def test_model_vad_checkpoint_runs_as_jax(audio_dir, pretrained, tmp_path):
