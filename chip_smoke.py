@@ -392,6 +392,23 @@ RING_SHAPE = (1, 20, 6000, 64)  # 4 x 1500 frames: two minutes as one context
 RING_TOL = 2e-5
 MOE_SHAPE = (1280, 5120, 8, 4096)  # d, ffn, experts, tokens
 MOE_RTOL = 1e-4
+# phase 13, training over several devices, every mesh on the one card
+TRAIN_LR = 1e-3  # a step of the wrong sign moves a parameter 2e-3, past TRAIN_ATOL
+TRAIN_STEPS = 2
+TRAIN_LOSS_RTOL = 1e-5  # the first loss, sharded vs one device (fp32, TF32 off)
+# the first step's gradient, sharded vs one device, relative to its leaf's
+# largest |value| (AdamW's steps hide a gradient's scale: this holds it)
+TRAIN_GRAD_RTOL = 1e-4
+# parameters after TRAIN_STEPS: the JAX package's FSDP tolerance
+# (tests/test_parallel.py TestFsdp); an element whose gradient is within
+# TRAIN_GRAD_RTOL of zero (the key biases: zero in exact arithmetic) has no
+# sign to hold, AdamW steps it by about lr either way: the step bound
+TRAIN_RTOL, TRAIN_ATOL = 2e-3, 2e-4
+TRAIN_STEP_BOUND = 2 * TRAIN_LR * TRAIN_STEPS * 1.01
+TRAIN_TIMED = 3  # steps timed per mesh, after the gated ones
+FSDP_ENTRIES = 4
+PG_STEPS = 3  # cli finetune over the world-size-1 group
+PG_LOSS_RTOL = 1e-6  # its first loss against phase 11's (the same batch and code)
 
 
 def log(msg: str) -> None:
@@ -4103,6 +4120,349 @@ def phase_multi_device(dev, wav: str, workdir: str, card: str) -> dict:
     return out
 
 
+# -- phase 13: training over several devices, on one card ---------------------------------
+
+
+def _training_batches(root: str, cache: str, n: int) -> list:
+    """n batches of FINETUNE_BATCH crop pairs of phase 5's indexed chunks,
+    drawn as `cli finetune` draws them (its seed, its tokenizer at 128)."""
+    import random
+    import sqlite3
+
+    import torch
+
+    from eioku_tpu_torch.models.embed.tokenizer import WordPieceTokenizer
+    from eioku_tpu_torch.parallel.finetune import crop_pair
+
+    con = sqlite3.connect(os.path.join(root, "s.db"))
+    texts = [t for (t,) in con.execute("SELECT text FROM embedding_chunks")
+             if len(t.split()) >= 4]
+    con.close()
+    rng = random.Random(0)
+    tok = WordPieceTokenizer.from_cache_dir(cache, max_len=128)
+    out = []
+    for _ in range(n):
+        pairs = [crop_pair(rng.choice(texts), rng) for _ in range(FINETUNE_BATCH)]
+        out.append([torch.from_numpy(x) for x in (*tok.encode_batch([a for a, _ in pairs]),
+                                                  *tok.encode_batch([p for _, p in pairs]))])
+    return out
+
+
+def _train_gate(got: dict, got_grads: dict, want: dict, want_grads: dict,
+                label: str) -> dict:
+    """The first step's gradients within TRAIN_GRAD_RTOL of their leaf's
+    largest |value| (a key bias's scale is its layer's query bias's), the
+    parameters after the steps within TRAIN_RTOL / TRAIN_ATOL, except the
+    elements with no gradient sign (within TRAIN_GRAD_RTOL of zero), held
+    to TRAIN_STEP_BOUND."""
+    worst_g = worst_p = 0.0
+    signless = 0
+    for name, w in want.items():
+        ref = want_grads[name].float()
+        scale = float(want_grads[name.replace("key.bias", "query.bias")].abs().max())
+        dg = float((got_grads[name].float() - ref).abs().max())
+        if dg > TRAIN_GRAD_RTOL * scale:
+            raise AssertionError(f"{label}: the gradient of {name} departs {dg:.3e} "
+                                 f"(scale {scale:.3e})")
+        worst_g = max(worst_g, dg / scale)
+        d = (got[name].float() - w.float()).abs()
+        free = ref.abs() <= TRAIN_GRAD_RTOL * scale
+        held = ~free
+        if bool((d[free] > TRAIN_STEP_BOUND).any()) or \
+                bool((d[held] > TRAIN_ATOL + TRAIN_RTOL * w.float().abs()[held]).any()):
+            raise AssertionError(f"{label}: {name} departs {float(d.max()):.3e}")
+        signless += int((free & (ref != 0)).sum())  # a zero gradient steps alike
+        if bool(held.any()):
+            worst_p = max(worst_p, float(d[held].max()))
+    return {"grad_rel_err": worst_g, "param_max_abs_err": worst_p,
+            "signless_elements": signless}
+
+
+def _ms_per_step(step, batch) -> float:
+    import torch
+
+    step(*batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        step(*batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / TRAIN_TIMED * 1e3
+
+
+def _dp_tp_steps(dev, cache: str, batches: list) -> tuple[dict, dict]:
+    """13.1 the step over data 2, model 2 and a 2 x 2 mesh of cuda:0
+    against the one-device step from the same weights."""
+    import functools
+
+    from eioku_tpu_torch.models.embed.minilm import load_minilm
+    from eioku_tpu_torch.parallel.mesh import Mesh
+    from eioku_tpu_torch.parallel.train import adamw, make_train_step
+
+    model, _, _ = load_minilm(cache, device=dev)
+    step, _ = make_train_step(model, adamw(model, TRAIN_LR))
+    losses, grads = [], None
+    for b in batches:
+        losses.append(float(step(*b)))
+        grads = grads or {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    want = {"losses": losses, "grads": grads,
+            "params": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+    out = {"one_device": {"losses": losses, "ms_per_step": _ms_per_step(step, batches[0])}}
+    for name, grid in (("data2", [[dev], [dev]]), ("model2", [[dev, dev]]),
+                       ("data2_model2", [[dev, dev], [dev, dev]])):
+        fresh, _, _ = load_minilm(cache, device=dev)
+        sharded, _ = make_train_step(fresh, functools.partial(adamw, lr=TRAIN_LR), Mesh(grid))
+        got, got_grads = [], None
+        for b in batches:
+            got.append(float(sharded(*b)))
+            got_grads = got_grads or sharded.gradients()
+        rel = abs(got[0] - losses[0]) / abs(losses[0])
+        gate = _train_gate(sharded.state_dict(), got_grads, want["params"], grads, name)
+        ms = _ms_per_step(sharded, batches[0])
+        log(f"13.1 {name} {Mesh(grid).shape}: first loss {got[0]:.6f} against one "
+            f"device's {losses[0]:.6f} (relative {rel:.2e}); first gradients within "
+            f"{gate['grad_rel_err']:.2e} of their scale; parameters after {TRAIN_STEPS} "
+            f"steps within {gate['param_max_abs_err']:.3e} ({gate['signless_elements']} "
+            f"signless elements to the step bound); {ms:.1f} ms per step, one device "
+            f"{out['one_device']['ms_per_step']:.1f}")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"13.1 {name}: first loss {got[0]} vs {losses[0]}")
+        out[name] = {"losses": got, "first_loss_rel_err": rel, **gate, "ms_per_step": ms}
+    return out, want
+
+
+def _fsdp_and_checkpoints(dev, cache: str, batches: list, want: dict, workdir: str
+                          ) -> dict:
+    """13.2 FSDP over FSDP_ENTRIES x cuda:0 and 13.3 its sharded checkpoint:
+    the same layout, data 2 and whole, and a resumed step."""
+    import functools
+
+    import torch
+
+    from eioku_tpu_torch.models.checkpoint import restore_sharded, save_sharded
+    from eioku_tpu_torch.models.embed.minilm import load_minilm
+    from eioku_tpu_torch.parallel.fsdp import (
+        gather_tree,
+        gradients,
+        make_fsdp_train_step,
+        max_leaf_shard_fraction,
+    )
+    from eioku_tpu_torch.parallel.mesh import Mesh, tree_leaves
+    from eioku_tpu_torch.parallel.train import adamw
+
+    model, _, _ = load_minilm(cache, device=dev)
+    opt = functools.partial(adamw, lr=TRAIN_LR)
+    step, _, prepare = make_fsdp_train_step(model, Mesh([[dev]] * FSDP_ENTRIES), opt)
+    params, state = prepare(model)
+    frac = {"params": max_leaf_shard_fraction(params),
+            "moments": max_leaf_shard_fraction([state["exp_avg"], state["exp_avg_sq"]])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, grads = [], None
+    for b in batches:
+        params, state, loss = step(params, state, *b)
+        losses.append(float(loss))
+        grads = grads or gradients(params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    rel = abs(losses[0] - want["losses"][0]) / abs(want["losses"][0])
+    gate = _train_gate(gather_tree(params), grads, want["params"], want["grads"], "fsdp")
+    frac_after = max_leaf_shard_fraction([params, state["exp_avg"], state["exp_avg_sq"]])
+    log(f"13.2 FSDP over {FSDP_ENTRIES} x {dev}: largest share an entry holds "
+        f"{frac['params']:.4f} (parameters), {frac['moments']:.4f} (moments), "
+        f"{frac_after:.4f} after the steps; first loss relative {rel:.2e}; first "
+        f"gradients within {gate['grad_rel_err']:.2e}; parameters within "
+        f"{gate['param_max_abs_err']:.3e} ({gate['signless_elements']} signless); peak "
+        f"{peak:.1f} MiB")
+    if max(*frac.values(), frac_after) > 1 / FSDP_ENTRIES or not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"13.2 FSDP: shares {frac}, {frac_after}, loss {rel}")
+    out = {"fsdp": {"entries": FSDP_ENTRIES, "shard_fraction": frac,
+                    "shard_fraction_after": frac_after, "losses": losses,
+                    "first_loss_rel_err": rel, **gate, "peak_mib": peak}}
+    saved = {"params": params, "opt": state}
+    path = os.path.join(workdir, "fsdp_ckpt")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    save_sharded(saved, path)
+    save_s = time.perf_counter() - t
+    written = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    t = time.perf_counter()
+    back = restore_sharded(saved, path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+
+    def equal(a, b) -> bool:
+        la, lb = tree_leaves(gather_tree(a)), tree_leaves(gather_tree(b))
+        return len(la) == len(lb) and all(torch.equal(x.to(dev), y.to(dev))
+                                          for x, y in zip(la, lb))
+    same = equal(back, saved)
+    resharded = {}
+    for name, n in (("data2", 2), ("whole", 1)):
+        p2, o2 = make_fsdp_train_step(model, Mesh([[dev]] * n), opt)[2](model)
+        resharded[name] = equal(restore_sharded({"params": p2, "opt": o2}, path), saved)
+    _, _, loss_cont = step(params, state, *batches[0])
+    _, _, loss_res = step(back["params"], back["opt"], *batches[0])
+    resumed = float(loss_res) == float(loss_cont) and equal(back, saved)
+    log(f"13.3 sharded checkpoint: {written / 2**20:.1f} MiB written in {save_s:.3f} s, "
+        f"restored in {restore_s:.3f} s; same layout bit-equal {same}, into data 2 "
+        f"{resharded['data2']}, into one entry {resharded['whole']}; a step after the "
+        f"restore equals the uninterrupted step {resumed}")
+    if not (same and all(resharded.values()) and resumed):
+        raise AssertionError(f"13.3: same {same}, resharded {resharded}, resumed {resumed}")
+    out["fsdp"]["ms_per_step"] = _ms_per_step(
+        lambda *b: step(params, state, *b), batches[0])
+    out["checkpoint"] = {"bytes": written, "save_s": save_s, "restore_s": restore_s,
+                         "bit_equal": same, "resharded_bit_equal": resharded,
+                         "resumed_step_equal": resumed}
+    return out
+
+
+def _finetune_over_group(dev, root: str, cache: str, workdir: str, ft: dict) -> dict:
+    """13.4 `cli finetune` as a process of a world-size-1 NCCL group, then
+    finetune_embedder(model_parallel=2) here over [cuda:0, cuda:0]."""
+    import types
+
+    from eioku_tpu_torch.db.connection import Database
+    from eioku_tpu_torch.models.embed.minilm import load_minilm
+    from eioku_tpu_torch.parallel import mesh as mesh_mod
+    from eioku_tpu_torch.parallel.finetune import finetune_embedder
+
+    one_loss = ft["stats"]["first_loss"]
+    out_cache = os.path.join(workdir, "finetuned_pg")
+    save_to = os.path.join(out_cache, "minilm-l6", "native.npz")
+    cfg_path = os.path.join(workdir, "finetune.json")
+    env = {**_service_env(), "EIOKU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "EIOKU_NUM_PROCESSES": "1", "EIOKU_PROCESS_ID": "0"}
+    cmd = [sys.executable, "-m", "eioku_tpu_torch.cli", "--db", f"sqlite:///{root}/s.db",
+           "--config", cfg_path, "finetune", "--steps", str(PG_STEPS), "--batch-size",
+           str(FINETUNE_BATCH), "--model-parallel", "1", "--save-to", save_to]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                       text=True, capture_output=True, timeout=600)
+    wall = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(f"cli finetune over the group: rc {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    stats = json.loads(r.stdout)
+    rel = abs(stats["first_loss"] - one_loss) / abs(one_loss)
+    _, _, pretrained = load_minilm(out_cache, device=dev)
+    log(f"13.4 cli finetune over a world-size-1 NCCL group: mesh {stats['mesh']}, first "
+        f"loss {stats['first_loss']!r} against phase 11's {one_loss!r} (relative "
+        f"{rel:.2e}); the saved checkpoint loads (pretrained {pretrained}); process "
+        f"{wall:.2f} s")
+    if not rel <= PG_LOSS_RTOL or not pretrained or \
+            stats["mesh"] != {"data": 1, "model": 1}:
+        raise AssertionError(f"13.4 over the group: {stats}, phase 11 {one_loss}")
+    db = Database(f"sqlite:///{root}/s.db")
+    saved = mesh_mod.local_devices
+    mesh_mod.local_devices = lambda device=None: [dev, dev]
+    try:
+        tp = finetune_embedder(types.SimpleNamespace(
+            db=db, config=types.SimpleNamespace(model_cache_dir=cache)), steps=TRAIN_STEPS,
+            batch_size=FINETUNE_BATCH, model_parallel=2, device=dev,
+            save_to=os.path.join(workdir, "finetuned_tp", "native.npz"))
+    finally:
+        mesh_mod.local_devices = saved
+        db.close()
+    tp_rel = abs(tp["first_loss"] - one_loss) / abs(one_loss)
+    log(f"13.4 finetune_embedder(model_parallel=2) over [{dev}, {dev}]: mesh "
+        f"{tp['mesh']}, first loss relative {tp_rel:.2e} to one device's")
+    if not tp_rel <= TRAIN_LOSS_RTOL or tp["mesh"] != {"data": 1, "model": 2}:
+        raise AssertionError(f"13.4 model_parallel 2: {tp}")
+    return {"process_group": {"stats": stats, "first_loss_rel_err": rel,
+                              "process_s": wall},
+            "model_parallel_2": {"stats": tp, "first_loss_rel_err": tp_rel}}
+
+
+def _dp_detect_over_group(dev, workdir: str) -> dict:
+    """13.5 DataParallelDetector over the data axis of a world-size-1 NCCL
+    group on the clip's 64 frames: outputs and rows equal the plain
+    detect's."""
+    import torch
+    import torch.distributed as dist
+
+    from eioku_tpu_torch.ml import detection, video_io
+    from eioku_tpu_torch.models.yolo.classes import COCO_CLASSES
+    from eioku_tpu_torch.models.yolo.model import YOLOv8, YoloConfig, fold_batchnorm
+    from eioku_tpu_torch.models.yolo.postprocess import detect
+    from eioku_tpu_torch.ops import _cuda
+    from eioku_tpu_torch.parallel.inference import DataParallelDetector
+    from eioku_tpu_torch.parallel.mesh import Mesh
+
+    clip = os.path.join(workdir, "clip.mp4")
+    batch = next(iter(video_io.iter_frame_batches(clip, batch_size=64, frame_interval_s=1.0)))
+    host, _, _ = detection.letterbox_batch(batch.frames, batch.valid)
+    frames = torch.from_numpy(host).to(dev)
+    model = fold_batchnorm(YOLOv8(YoloConfig("yolov8n"),
+                                  generator=torch.Generator().manual_seed(0))).to(dev).eval()
+    want = detect(model, frames, conf_threshold=0.5)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        dp = DataParallelDetector(model, Mesh.over_process_group(dev, axis="data"))
+        _cuda.reset_launch_counts()
+        got = dp(frames, conf_threshold=0.5)
+        torch.cuda.synchronize()
+        k2 = _cuda.launch_counts()["nms"]
+    finally:
+        dist.destroy_process_group()
+    meta = [(i, 0) for i in range(len(frames))]
+
+    def rows_of(out):
+        r: list = []
+        detection.emit_boxes(r, detection.fetch(out), meta, 1.0, (0, 0), len(frames),
+                             1.0, (detection.INPUT_SIZE,) * 2, 33, COCO_CLASSES)
+        return r
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    rows = rows_of(got) == rows_of(want)
+    log(f"13.5 DataParallelDetector over a world-size-1 NCCL group: {len(frames)} frames, "
+        f"{k2} K2 launches; keep masks and outputs equal to the plain detect: {same}; "
+        f"{len(rows_of(want))} rows, equal: {rows}")
+    if not (same and rows and k2 >= 1):
+        raise AssertionError(f"13.5: equal {same}, rows {rows}, K2 {k2}")
+    return {"frames": len(frames), "k2_launches": k2, "outputs_equal": same,
+            "rows_equal": rows, "rows": len(rows_of(want))}
+
+
+def phase_training(dev, workdir: str, card: str, ft: dict) -> dict:
+    """Phase 13: the fine-tune step over data, model and data x model meshes,
+    FSDP, sharded checkpoints, the fine-tune over a process group and
+    data-parallel detect over one; MiniLM-L6 at full width (phase 5's
+    seeded checkpoint), fp32 with TF32 off, batch 16 x 128 tokens. Every
+    mesh lists cuda:0 several times, so no time here is a speed-up."""
+    import torch
+
+    from eioku_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = os.path.join(workdir, "semantic")
+    cache = os.path.join(root, "models")
+    batches = [[t.to(dev) for t in b] for b in _training_batches(root, cache, TRAIN_STEPS)]
+    seconds = {}
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    out, want = _dp_tp_steps(dev, cache, batches)
+    seconds["13.1"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out.update(_fsdp_and_checkpoints(dev, cache, batches, want, workdir))
+    seconds["13.2-13.3"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["finetune"] = _finetune_over_group(dev, root, cache, workdir, ft)
+    seconds["13.4"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    out["k3_launches"] = _cuda.launch_counts()["flash_attention"]
+    log(f"13 K3 launches on the training paths: {out['k3_launches']} (S = 128 < 512)")
+    if out["k3_launches"] != 0:
+        raise AssertionError(f"13: K3 launched {out['k3_launches']} times in training")
+    t = time.perf_counter()
+    out["dp_detect"] = _dp_detect_over_group(dev, workdir)
+    seconds["13.5"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    out["card"] = card
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4150,6 +4510,7 @@ def main() -> int:
         det = timed("10 detection options", phase_detection_options, dev, workdir, card)
         ft = timed("11 fine-tune", phase_finetune, dev, workdir, card)
         md = timed("12 multi-device", phase_multi_device, dev, wav, workdir, card)
+        tr13 = timed("13 multi-device training", phase_training, dev, workdir, card, ft)
     kernels = [
         {"name": "scene_diff", "route": "cuda",
          "source": "eioku_tpu_torch/csrc/scene_diff.cu",
@@ -4182,12 +4543,14 @@ def main() -> int:
          "launches_tp4_encoder": md["encoders"]["tp4"]["bf16"]["k3_launches"],
          "launches_pp_encoder": md["encoders"]["pp"]["bf16"]["k3_launches"],
          "launches_tp_transcription": md["tp_task"]["k3_launches"],
+         "launches_training": tr13["k3_launches"],
          "tp_heads": md["k3_tp_heads"],
          **k3},
     ]
     kernels[1]["launches_data_parallel_two_replicas"] = \
         det["data_parallel"]["two_replicas"]["k2_launches"]
     kernels[1]["launches_visual_int8"] = det["tasks"]["visual_analysis_int8"]["launches"]["nms"]
+    kernels[1]["launches_data_parallel_process_group"] = tr13["dp_detect"]["k2_launches"]
     kernels[0]["launches_visual_int8"] = \
         det["tasks"]["visual_analysis_int8"]["launches"]["scene_diff"]
     print(json.dumps({"slice": {k: v for k, v in sl.items()
@@ -4202,6 +4565,7 @@ def main() -> int:
     print(json.dumps({"api": api}))
     print(json.dumps({"detection_options": det, "finetune": ft}))
     print(json.dumps({"multi_device": md}))
+    print(json.dumps({"training": tr13}))
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

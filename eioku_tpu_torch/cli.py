@@ -6,7 +6,10 @@ Commands: `tasks` (tasks joined with their queue jobs), `videos`, `resync`
 `people`, `import-eioku` (migrate a reference eioku database), `stats`,
 `export-dump` / `import-dump` (library backup and restore) and
 `extract-audio` and `finetune` (fine-tune the embedder on the indexed
-transcripts, on one card: parallel/finetune.py).
+transcripts over every card, MiniLM tensor-parallel over
+--model-parallel of them: parallel/finetune.py; with EIOKU_COORDINATOR,
+EIOKU_NUM_PROCESSES and EIOKU_PROCESS_ID set, one rank of a process
+group, as the worker joins one).
 
 The context's semantic and visual indexes and the fine-tune run on CUDA;
 EIOKU_FORCE_CPU=1 puts them on the CPU instead. With semantic_search or
@@ -189,12 +192,20 @@ def cmd_discover(args) -> int:
 
 
 def cmd_finetune(args) -> int:
-    from eioku_tpu_torch.parallel.finetune import finetune_embedder
+    import torch.distributed as dist
 
-    ctx = _ctx(args)
-    stats = finetune_embedder(ctx, steps=args.steps, batch_size=args.batch_size,
-                              lr=args.lr, model_parallel=args.model_parallel,
-                              save_to=args.save_to)
+    from eioku_tpu_torch.parallel.finetune import finetune_embedder
+    from eioku_tpu_torch.parallel.mesh import initialize_distributed
+
+    started = initialize_distributed()  # multi-host no-op unless EIOKU_COORDINATOR is set
+    try:
+        ctx = _ctx(args)
+        stats = finetune_embedder(ctx, steps=args.steps, batch_size=args.batch_size,
+                                  lr=args.lr, model_parallel=args.model_parallel,
+                                  save_to=args.save_to)
+    finally:
+        if started:
+            dist.destroy_process_group()
     print(json.dumps(stats, indent=2))
     return 0
 

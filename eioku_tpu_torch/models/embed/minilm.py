@@ -26,6 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from eioku_tpu_torch.models.layers import (
@@ -34,12 +35,14 @@ from eioku_tpu_torch.models.layers import (
     gelu_erf,
     jax_linear_state,
     jax_ln_state,
+    layer_norm,
     load_state,
     mha,
     split_heads,
     xavier_,
 )
 from eioku_tpu_torch.ops.flash_attention import flash_attention
+from eioku_tpu_torch.parallel.collectives import on
 
 LN_EPS = 1e-12
 FLASH_MIN_SEQ = 512  # sequences this long take K3
@@ -159,11 +162,11 @@ def init_minilm(cfg: MiniLMConfig, generator: torch.Generator,
 # -- forward ---------------------------------------------------------------------------
 
 
-def encoder_layer(x: torch.Tensor, layer: Layer, n_heads: int, mask: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
-    """One post-LN BERT layer. mask [B, 1, 1, S] bool; lengths [B] int32."""
-    att = layer.attention
-    q, k, v = att.self.query(x), att.self.key(x), att.self.value(x)
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int,
+           mask: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Attention over the n_heads of [B, S, n_heads hd] projections, before
+    the output projection: plain `mha` below FLASH_MIN_SEQ, K3 from there.
+    mask [B, 1, 1, S] bool; lengths [B] int32."""
     b, s, d = q.shape
     if s >= FLASH_MIN_SEQ:
         # padding is contiguous at the end, so the key mask is a per-row
@@ -171,9 +174,16 @@ def encoder_layer(x: torch.Tensor, layer: Layer, n_heads: int, mask: torch.Tenso
         # strides and writes a [B, S, H, hd] buffer
         o = flash_attention(split_heads(q, n_heads), split_heads(k, n_heads),
                             split_heads(v, n_heads), lengths=lengths)
-        attn = att.output.dense(o.transpose(1, 2).reshape(b, s, d))
-    else:
-        attn = att.output.dense(mha(q, k, v, n_heads, mask=mask))
+        return o.transpose(1, 2).reshape(b, s, d)
+    return mha(q, k, v, n_heads, mask=mask)
+
+
+def encoder_layer(x: torch.Tensor, layer: Layer, n_heads: int, mask: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """One post-LN BERT layer. mask [B, 1, 1, S] bool; lengths [B] int32."""
+    att = layer.attention
+    q, k, v = att.self.query(x), att.self.key(x), att.self.value(x)
+    attn = att.output.dense(attend(q, k, v, n_heads, mask, lengths))
     x = att.output.LayerNorm(x + attn)
     h = gelu_erf(layer.intermediate.dense(x))
     return layer.output.LayerNorm(x + layer.output.dense(h))
@@ -201,11 +211,96 @@ def embed(model: MiniLM, token_ids: torch.Tensor,
     """token_ids / mask [B, S] (on the model's device) -> L2-normalised
     sentence embeddings [B, dim] in fp32; differentiable (the fine-tune's
     forward, parallel/train.py)."""
-    x = encode(model, token_ids, attention_mask).float()
+    return pool(encode(model, token_ids, attention_mask), attention_mask)
+
+
+def pool(x: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """Last hidden states [B, S, d] -> their mean over the mask's tokens,
+    L2-normalised, in fp32."""
+    x = x.float()
     m = attention_mask[..., None].float()
     pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-9)
     norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
     return pooled / norm.clamp_min(1e-9)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """`Linear`'s arithmetic on a weight (or a shard of one): x W^T in x's
+    type, then + b."""
+    out = F.linear(x, w.to(x.dtype))
+    return out if b is None else out + b.to(x.dtype)
+
+
+def embed_tp(shards: list, line, token_ids: torch.Tensor, attention_mask: torch.Tensor,
+             cfg: MiniLMConfig) -> list[torch.Tensor]:
+    """Tensor-parallel, differentiable `embed` over one model line (the
+    fine-tune's forward on a mesh, parallel/train.py).
+
+    shards[k]: the line's k-th local shard as a mapping from the port's
+      parameter names to tensors, in `shard_minilm_params`' Megatron cut
+      (parallel/mesh.py `_minilm_dim`): the token embedding's vocabulary
+      rows, q/k/v/ffn1's output features with their biases, o/ffn2's
+      input features; everything else whole.
+    line: the line's collectives (parallel/collectives.py).
+
+    The token embedding looks the ids up in its rows (zero elsewhere) and
+    reduces over the line; q/k/v and ffn1 take their input through
+    `copy_to_line`; attention runs over the n_heads / tp local heads
+    (`attend`, as `encoder_layer`); the o and ffn2 partials reduce over the
+    line and their whole biases are added once, after the sum. Returns
+    each local shard's embeddings [B, dim] in fp32 (the same values)."""
+    tp = line.size
+    if cfg.n_heads % tp or cfg.vocab_size % tp or cfg.ffn_dim % tp:
+        raise ValueError(f"MiniLM's heads, vocabulary and FFN must divide by tp {tp}")
+    heads, s = cfg.n_heads // tp, token_ids.shape[1]
+
+    def each(fn, *per_shard) -> list:
+        out = []
+        for k, (sd, dev) in enumerate(zip(shards, line.devices)):
+            with on(dev):
+                out.append(fn(k, sd, *(xs[k] for xs in per_shard)))
+        return out
+    ids = [token_ids.to(d) for d in line.devices]
+    masks = [attention_mask.to(d) for d in line.devices]
+    key_masks = [m[:, None, None, :].bool() for m in masks]
+    lengths = [m.sum(dim=-1).to(torch.int32) for m in masks]
+
+    def tokens(k, sd):
+        w = sd["embeddings.word_embeddings.weight"]
+        local = ids[k].long() - line.indices[k] * w.shape[0]
+        hit = (local >= 0) & (local < w.shape[0])
+        # F.embedding: its backward on the card sums repeated ids in a fixed
+        # order (sorted), where indexing's accumulates with atomics
+        return torch.where(hit[..., None], F.embedding(local.clamp(0, w.shape[0] - 1), w), 0.0)
+
+    def embeddings(k, sd, tok):
+        x = tok + sd["embeddings.position_embeddings.weight"][:s][None] \
+            + sd["embeddings.token_type_embeddings.weight"][0][None, None]
+        return layer_norm(x, sd["embeddings.LayerNorm.weight"],
+                          sd["embeddings.LayerNorm.bias"], LN_EPS).to(cfg.dtype)
+    xs = each(embeddings, line.reduce_from_line(each(tokens)))
+    for i in range(cfg.n_layers):
+        p = f"encoder.layer.{i}."
+
+        def attention(k, sd, x):
+            q, kk, v = (_linear(x, sd[f"{p}attention.self.{n}.weight"],
+                                sd[f"{p}attention.self.{n}.bias"])
+                        for n in ("query", "key", "value"))
+            return _linear(attend(q, kk, v, heads, key_masks[k], lengths[k]),
+                           sd[f"{p}attention.output.dense.weight"])
+
+        def ffn(k, sd, x):
+            h = gelu_erf(_linear(x, sd[f"{p}intermediate.dense.weight"],
+                                 sd[f"{p}intermediate.dense.bias"]))
+            return _linear(h, sd[f"{p}output.dense.weight"])
+
+        for part, out in ((attention, "attention.output."), (ffn, "output.")):
+            sums = line.reduce_from_line(each(part, line.copy_to_line(xs)))
+            xs = each(lambda k, sd, x, sm: layer_norm(
+                x + (sm + sd[f"{p}{out}dense.bias"].to(x.dtype)),
+                sd[f"{p}{out}LayerNorm.weight"], sd[f"{p}{out}LayerNorm.bias"], LN_EPS),
+                xs, sums)
+    return each(lambda k, sd, x: pool(x, masks[k]), xs)
 
 
 @torch.no_grad()

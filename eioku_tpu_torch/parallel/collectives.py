@@ -17,8 +17,19 @@ list entry per local shard. Two backends give the same results:
   callers never write into what a collective returns.
 - `ProcessCollectives` (backend b): one shard per process, over a
   `torch.distributed` group (NCCL on the card, gloo on the CPU):
-  `all_reduce`, `all_gather_into_tensor`, and `batch_isend_irecv` for the
-  ring.
+  `all_reduce`, `all_gather_into_tensor`, `reduce_scatter_tensor`, and
+  `batch_isend_irecv` for the ring.
+
+Training adds the Megatron pair, `copy_to_line` (identity forward, psum
+backward) and `reduce_from_line` (psum forward, identity backward), and
+an `all_gather` whose backward hands each shard its slice of the summed
+gradient (a reduce-scatter). A line's loss counts once: in backend (a)
+the caller takes it from the first local shard, and autograd through
+`.to()`, `+` and `cat` already gives every leaf its gradient (the two
+Megatron forms are then the identity and `psum`); in backend (b) every
+rank computes the same loss, so the forms are `torch.autograd.Function`s.
+(`torch.distributed.nn.functional.all_reduce` would all-reduce in
+backward as well and multiply the gradients by the line's size.)
 
 A shard's work runs under `on(device)`, because the hand-written kernels
 (K3 in the Whisper encoder) launch on the current device's stream.
@@ -63,6 +74,25 @@ class LocalCollectives:
         n = self.size
         return [parts[(i - 1) % n].to(self.devices[i]) for i in range(n)]
 
+    def reduce_scatter(self, parts: list[torch.Tensor], dim: int = 0) -> list[torch.Tensor]:
+        """The sum of the parts, cut in `size` equal pieces along `dim`:
+        shard i keeps piece i."""
+        total = self.psum(parts)[0]
+        if total.shape[dim] % self.size:
+            raise ValueError(f"dimension {dim} of {tuple(total.shape)} does not divide "
+                             f"by {self.size}")
+        k = total.shape[dim] // self.size
+        return [total.narrow(dim, i * k, k).to(d) for i, d in enumerate(self.devices)]
+
+    def copy_to_line(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Megatron's f: each shard's input as it is (the gradients of its
+        uses meet in the input's one autograd node)."""
+        return list(parts)
+
+    def reduce_from_line(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Megatron's g: the psum (the first shard's use carries the loss)."""
+        return self.psum(parts)
+
 
 class ProcessCollectives:
     """Backend (b): this process's one shard of a line whose shards are the
@@ -80,16 +110,25 @@ class ProcessCollectives:
 
     def psum(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
         (p,) = parts
-        out = p.clone()  # all_reduce sums in place
-        dist.all_reduce(out, group=self.group)
-        return [out]
+        return [_all_reduce(p, self.group)]
 
     def all_gather(self, parts: list[torch.Tensor], dim: int = -1) -> list[torch.Tensor]:
+        """The parts concatenated along `dim`; backward: each rank's slice
+        of the summed gradient."""
         (p,) = parts
-        p = p.movedim(dim, 0).contiguous()  # all_gather_into_tensor stacks on dim 0
-        out = p.new_empty((self.size * p.shape[0],) + tuple(p.shape[1:]))
-        dist.all_gather_into_tensor(out, p, group=self.group)
-        return [out.movedim(0, dim)]
+        return [_AllGather.apply(p, self.group, self.size, dim)]
+
+    def reduce_scatter(self, parts: list[torch.Tensor], dim: int = 0) -> list[torch.Tensor]:
+        (p,) = parts
+        return [_reduce_scatter(p, self.group, self.size, dim)]
+
+    def copy_to_line(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        (p,) = parts
+        return [_CopyToLine.apply(p, self.group)]
+
+    def reduce_from_line(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        (p,) = parts
+        return [_ReduceFromLine.apply(p, self.group)]
 
     def ppermute(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
         """This rank's part goes to rank + 1, and rank - 1's comes in."""
@@ -103,3 +142,57 @@ class ProcessCollectives:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return [out]
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    out = t.clone()  # all_reduce sums in place
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _all_gather(t: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
+    t = t.movedim(dim, 0).contiguous()  # all_gather_into_tensor stacks on dim 0
+    out = t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(t: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
+    t = t.movedim(dim, 0).contiguous()
+    if t.shape[0] % size:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not divide by {size}")
+    out = t.new_empty((t.shape[0] // size,) + tuple(t.shape[1:]))
+    dist.reduce_scatter_tensor(out, t, group=group)
+    return out.movedim(0, dim)
+
+
+class _CopyToLine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _ReduceFromLine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, dim):
+        ctx.group, ctx.size, ctx.dim = group, size, dim
+        return _all_gather(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.group, ctx.size, ctx.dim), None, None, None

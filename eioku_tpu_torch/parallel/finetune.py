@@ -1,37 +1,36 @@
 """Embedder domain adaptation: fine-tune MiniLM on the library's own
-transcripts (port of eioku_tpu/parallel/finetune.py), on one card.
+transcripts (port of eioku_tpu/parallel/finetune.py).
 
 Training pairs are self-supervised crops: two different word windows of the
 same transcript chunk form an (anchor, positive) pair; in-batch InfoNCE
 (parallel/train.py) pushes windows of the same chunk together and different
-chunks apart. The result is saved as the native checkpoint (the JAX
-package's tree layout, models/checkpoint.py) that `load_minilm` of either
-package picks up, so the semantic index serves the adapted weights on its
-next start.
-
-The JAX package shards the step over its (data, model) mesh, which spans
-every visible device, and rounds the batch up to a multiple of the data
-axis. The port trains on one card on every host, and rounds the batch as
-the JAX package would on that host: up to a multiple of the visible cards
-(the data axis at `model_parallel` 1), so that both draw the same pairs;
-on the CPU, one device, the batch is not rounded. Its fallbacks of
-`model_parallel` are mirrored (a degree that does not divide the device
-count, or MiniLM's vocabulary, heads and width, runs at 1); where it would
-shard the model over several devices, the port raises ModelNotAvailable:
-multi-GPU training is not ported.
+chunks apart. As in the JAX package, the step runs over a (data, model)
+mesh of every device (parallel/mesh.py): the cards of `local_devices`, or
+the ranks of the process group that `initialize_distributed` started (one
+card each: rank r takes visible card r mod their count, so ranks numbered
+host by host share out each host's cards), with MiniLM tensor-parallel
+over `model_parallel` of them and the batch rounded up to a multiple of the
+data axis. The JAX package's fallbacks of `model_parallel` are mirrored (a
+degree that does not divide the device count, or MiniLM's vocabulary,
+heads and width, runs at 1). The shards are gathered into the whole model
+and saved by rank 0 as the native checkpoint (the JAX package's tree
+layout, models/checkpoint.py) that `load_minilm` of either package picks
+up, so the semantic index serves the adapted weights on its next start.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import random
 
 import torch
+import torch.distributed as dist
 
-from eioku_tpu_torch.ml.engine import ModelNotAvailable
 from eioku_tpu_torch.models.checkpoint import save_params
 from eioku_tpu_torch.models.embed.minilm import load_minilm, to_jax_params
 from eioku_tpu_torch.models.embed.tokenizer import WordPieceTokenizer
+from eioku_tpu_torch.parallel import mesh as mesh_mod
 from eioku_tpu_torch.parallel.train import adamw, make_train_step
 from eioku_tpu_torch.utils.device import entry_point_device, resolve_device
 
@@ -51,12 +50,6 @@ def crop_pair(text: str, rng: random.Random, min_frac: float = 0.5
         return " ".join(words[start:start + size])
 
     return crop(), crop()
-
-
-def visible_devices(dev: torch.device) -> int:
-    """The devices the JAX package's mesh would span on this host: every
-    visible card for a CUDA device, else 1."""
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
 def finetune_embedder(ctx, steps: int = 100, batch_size: int = 16,
@@ -79,29 +72,28 @@ def finetune_embedder(ctx, steps: int = 100, batch_size: int = 16,
     model, cfg, _ = load_minilm(cache, device=dev)
     tokenizer = WordPieceTokenizer.from_cache_dir(cache, max_len=128)
 
-    n_dev = visible_devices(dev)
+    devices = mesh_mod.local_devices(dev)
+    n_dev = dist.get_world_size() if dist.is_initialized() else len(devices)
     mp = max(model_parallel, 1)
     if n_dev % mp != 0:
         mp = 1
+    # every sharded weight dim must divide too (tok_emb rows 30522 = 2*3*5087,
+    # head dims 12): mp beyond 2 would fail placement mid-run
     for dim in (cfg.vocab_size, cfg.n_heads, cfg.dim):
         if dim % mp != 0:
             log.warning("model_parallel=%d does not divide %d; running mp=1",
                         mp, dim)
             mp = 1
             break
-    if mp > 1:
-        raise ModelNotAvailable(
-            f"model_parallel={mp} (MiniLM sharded over {mp} cards) is not ported "
-            "to eioku_tpu_torch: fine-tuning runs on one card")
-    # the JAX package's data axis is every device at mp 1: the same rounded
-    # batch, trained here on one card
-    rounded = -(-batch_size // n_dev) * n_dev
-    if rounded != batch_size:
-        log.info("finetune batch rounded up as the JAX package's mesh rounds it",
-                 extra={"batch_size": batch_size, "rounded": rounded,
-                        "devices": n_dev})
-        batch_size = rounded
-    step_fn, _ = make_train_step(model, adamw(model, lr))
+    if dist.is_initialized():
+        devices = [devices[dist.get_rank() % len(devices)]]
+        mesh = mesh_mod.Mesh.over_world(devices[0], model_parallel=mp)
+    else:
+        mesh = mesh_mod.make_mesh(n_dev, model_parallel=mp, device=dev)
+    n_data = mesh.shape["data"]
+    # the batch shards over the data axis: round up to a multiple of it
+    batch_size = -(-batch_size // n_data) * n_data
+    step_fn, _ = make_train_step(model, functools.partial(adamw, lr=lr), mesh)
 
     rng = random.Random(seed)
     losses = []
@@ -109,7 +101,7 @@ def finetune_embedder(ctx, steps: int = 100, batch_size: int = 16,
         batch = [crop_pair(rng.choice(texts), rng) for _ in range(batch_size)]
         a_ids, a_mask = tokenizer.encode_batch([a for a, _ in batch])
         p_ids, p_mask = tokenizer.encode_batch([p for _, p in batch])
-        put = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+        put = lambda x: torch.from_numpy(x).to(devices[0])  # noqa: E731
         loss = step_fn(put(a_ids), put(a_mask), put(p_ids), put(p_mask))
         losses.append(float(loss))
         if step % 20 == 0:
@@ -117,7 +109,11 @@ def finetune_embedder(ctx, steps: int = 100, batch_size: int = 16,
                                              "loss": round(losses[-1], 4)})
     out_path = save_to or (os.path.join(cache, "minilm-l6", "native.npz")
                            if cache else "minilm-native.npz")
-    save_params(to_jax_params(model), out_path)
+    model.load_state_dict(step_fn.state_dict())  # a gather over the model axis
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        save_params(to_jax_params(model), out_path)
+    if dist.is_initialized():
+        dist.barrier()
     return {"steps": steps, "first_loss": losses[0], "last_loss": losses[-1],
             "checkpoint": out_path, "chunks": len(texts),
-            "mesh": {"data": 1, "model": mp}}
+            "mesh": dict(mesh.shape)}

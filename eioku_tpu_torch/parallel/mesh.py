@@ -8,9 +8,9 @@ shard over "data", the transformer families split Megatron-style over
 appear more than once (`[cuda:0, cuda:0]` runs two shards one after the
 other on one card). Its lines along an axis come with the collectives
 (parallel/collectives.py) that the parallel functions are written against.
-`Mesh.over_process_group` is the same mesh across processes: the model
-axis spans the ranks of a `torch.distributed` group, one device each, and
-this process holds its rank's entry.
+`Mesh.over_process_group` and `Mesh.over_world` are the same mesh across
+processes: an axis spans the ranks of a `torch.distributed` group, one
+device each, and this process holds its rank's entry.
 
 The device list comes from `local_devices` alone, which tests and smoke
 runs replace to stand a list such as `[cpu] * 8` or `[cuda:0, cuda:0]` in
@@ -18,7 +18,9 @@ for the host's cards.
 
 Placing a tensor or a model on the mesh returns the grid of what each entry
 holds (`grid[i][j]` for mesh entry (i, j)); entries that repeat a device and
-hold the same shard share one copy.
+hold the same shard share one copy. A `ShardedTensor` is one tensor laid
+out over a line of the mesh (FSDP's parameters and optimizer moments,
+parallel/fsdp.py; sharded checkpoints, models/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -48,38 +50,76 @@ def local_devices(device: str | torch.device | None = None) -> list[torch.device
 
 class Mesh:
     """A (data, model) grid of devices: `devices[i][j]` is the entry at
-    data index i and model index j."""
+    data index i and model index j. Over processes (`groups`: an axis ->
+    the `torch.distributed` group whose ranks it spans) the grid holds this
+    process's one entry."""
 
     axis_names = AXES
 
-    def __init__(self, devices, group=None):
+    def __init__(self, devices, groups: dict | None = None):
         self.devices = [[torch.device(d) for d in row] for row in devices]
         if not self.devices or not self.devices[0] or \
                 len({len(row) for row in self.devices}) != 1:
             raise ValueError("a mesh is a non-empty rectangular grid")
-        self.group = group
+        self.groups = dict(groups or {})
+        if set(self.groups) - set(AXES) or \
+                (self.groups and len(self.devices) * len(self.devices[0]) != 1):
+            raise ValueError("a mesh over processes holds one entry, its groups "
+                             f"span axes of {AXES}")
 
     @classmethod
-    def over_process_group(cls, device: str | torch.device, group=None) -> Mesh:
-        """The model axis over the ranks of `group` (None: the default
-        group, which must be initialised), this process's entry on `device`."""
+    def over_process_group(cls, device: str | torch.device, group=None,
+                           axis: str = "model") -> Mesh:
+        """`axis` over the ranks of `group` (None: the default group, which
+        must be initialised), the other axis of size 1; this process's
+        entry on `device`."""
+        if axis not in AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}; have {AXES}")
         if not dist.is_initialized():
             raise RuntimeError("no process group; call initialize_distributed first")
-        return cls([[device]], group=group or dist.group.WORLD)
+        return cls([[device]], {axis: group or dist.group.WORLD})
+
+    @classmethod
+    def over_world(cls, device: str | torch.device, model_parallel: int = 1) -> Mesh:
+        """`make_mesh` over the ranks of the default group: rank r is entry
+        (r // model_parallel, r % model_parallel) of a (world /
+        model_parallel, model_parallel) grid. The data axis always spans a
+        group (of one rank at world size 1), the model axis one when
+        model_parallel > 1; every rank creates every line's group, in one
+        order, as `dist.new_group` requires."""
+        if not dist.is_initialized():
+            raise RuntimeError("no process group; call initialize_distributed first")
+        n, rank, mp = dist.get_world_size(), dist.get_rank(), model_parallel
+        if n % mp != 0:
+            raise ValueError("n_devices must be divisible by model_parallel")
+
+        def line(ranks: list[int]):
+            return dist.group.WORLD if len(ranks) == n else dist.new_group(ranks)
+        groups = {}
+        for j in range(mp):  # data lines: the ranks of model index j
+            g = line(list(range(j, n, mp)))
+            if rank % mp == j:
+                groups["data"] = g
+        if mp > 1:
+            for i in range(n // mp):  # model lines: the ranks of data index i
+                g = line(list(range(i * mp, (i + 1) * mp)))
+                if rank // mp == i:
+                    groups["model"] = g
+        return cls([[device]], groups)
 
     @property
     def shape(self) -> dict[str, int]:
-        model = (len(self.devices[0]) if self.group is None
-                 else dist.get_world_size(self.group))
-        return {"data": len(self.devices), "model": model}
+        local = {"data": len(self.devices), "model": len(self.devices[0])}
+        return {axis: dist.get_world_size(self.groups[axis]) if axis in self.groups
+                else local[axis] for axis in AXES}
 
     def lines(self, axis: str = "model") -> list:
         """The mesh's lines along `axis`, in order of the other axis' index,
         each as its collectives (with the devices of its local shards)."""
         if axis not in AXES:
             raise ValueError(f"unknown mesh axis {axis!r}; have {AXES}")
-        if axis == "model" and self.group is not None:
-            return [ProcessCollectives(self.devices[0][0], self.group)]
+        if axis in self.groups:
+            return [ProcessCollectives(self.devices[0][0], self.groups[axis])]
         rows = self.devices if axis == "model" else [list(c) for c in zip(*self.devices)]
         return [LocalCollectives(row) for row in rows]
 
@@ -94,9 +134,9 @@ class Mesh:
             if (index, dev) not in made:
                 made[index, dev] = make(index, dev)
             return made[index, dev]
-        if self.group is not None:
-            rank = dist.get_rank(self.group) if axis == "model" else 0
-            return [[entry(rank, self.devices[0][0])]]
+        if self.groups:
+            index = dist.get_rank(self.groups[axis]) if axis in self.groups else 0
+            return [[entry(index, self.devices[0][0])]]
         return [[entry(j if axis == "model" else i, d) for j, d in enumerate(row)]
                 for i, row in enumerate(self.devices)]
 
@@ -128,6 +168,77 @@ def shard_slice(t: torch.Tensor, dim: int | None, index: int, n: int) -> torch.T
         raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not divide by {n}")
     k = t.shape[dim] // n
     return t.narrow(dim, index * k, k)
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of equally shaped dict / list / tuple trees."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a dict / list / tuple tree, in `tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+class ShardedTensor:
+    """A tensor of `shape` laid out over one line of a mesh (`line`, its
+    collectives): cut in `line.size` equal parts along `dim`, or whole on
+    every entry (dim None). `parts[k]` is what the line's k-th local shard
+    holds (part `line.indices[k]`, on `line.devices[k]`); entries on one
+    device share a whole tensor."""
+
+    def __init__(self, shape, dim: int | None, line, parts: list[torch.Tensor]):
+        self.shape, self.dim, self.line, self.parts = tuple(shape), dim, line, list(parts)
+
+    @classmethod
+    def cut(cls, t: torch.Tensor, dim: int | None, line) -> ShardedTensor:
+        """t's parts, copied onto the line's local devices (a whole tensor
+        once per device)."""
+        made: dict = {}
+
+        def part(index: int, dev: torch.device) -> torch.Tensor:
+            key = (None if dim is None else index, dev)
+            if key not in made:
+                made[key] = shard_slice(t, dim, index, line.size).to(
+                    dev, copy=True, memory_format=torch.contiguous_format)
+            return made[key]
+        return cls(t.shape, dim, line, [part(i, d) for i, d in zip(line.indices, line.devices)])
+
+    @property
+    def n(self) -> int:
+        """The number of parts (1 when whole)."""
+        return 1 if self.dim is None else self.line.size
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    def unique_parts(self) -> list[torch.Tensor]:
+        return list({id(p): p for p in self.parts}.values())
+
+    def map(self, fn) -> ShardedTensor:
+        """fn of each distinct part, in the same layout."""
+        done = {id(p): fn(p) for p in self.unique_parts()}
+        return ShardedTensor(self.shape, self.dim, self.line, [done[id(p)] for p in self.parts])
+
+    def on_entries(self) -> list[torch.Tensor]:
+        """The whole tensor on each local shard's device: the parts
+        gathered over the line (differentiable: each part's gradient is
+        its slice of the summed gradient)."""
+        if self.dim is None:
+            return self.parts
+        return self.line.all_gather(self.parts, dim=self.dim)
+
+    def full(self) -> torch.Tensor:
+        """The whole tensor, on the first local shard's device."""
+        return self.on_entries()[0]
 
 
 def replicated(mesh: Mesh, x: torch.Tensor) -> list[list[torch.Tensor]]:

@@ -31,23 +31,13 @@ import torch
 from torch import nn
 
 from eioku_tpu_torch.parallel.collectives import on
-from eioku_tpu_torch.parallel.mesh import Mesh
-
-
-def _tree_map(fn, *trees):
-    """fn over the tensors of equally shaped dict / list / tuple trees."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (list, tuple)):
-        return type(first)(_tree_map(fn, *parts) for parts in zip(*trees))
-    return fn(*trees)
+from eioku_tpu_torch.parallel.mesh import Mesh, tree_map
 
 
 def stack_stage_params(per_stage_params: list):
     """Stack S per-stage trees into one tree with leading [S, ...] leaves
     (the layout `shard_pipeline_params` splits over the stages)."""
-    return _tree_map(lambda *leaves: torch.stack(leaves), *per_stage_params)
+    return tree_map(lambda *leaves: torch.stack(leaves), *per_stage_params)
 
 
 def shard_pipeline_params(stacked_params, mesh: Mesh, axis: str = "model") -> list[list]:
@@ -61,7 +51,7 @@ def shard_pipeline_params(stacked_params, mesh: Mesh, axis: str = "model") -> li
             if t.shape[0] != n:
                 raise ValueError(f"a leaf of {t.shape[0]} stages on a {n}-stage axis")
             return t[index].to(dev)
-        return _tree_map(leaf, stacked_params)
+        return tree_map(leaf, stacked_params)
     return mesh.place(block, axis)
 
 
@@ -71,7 +61,7 @@ def _place(params, dev: torch.device):
     if isinstance(params, nn.Module):
         home = next(params.parameters()).device
         return params if home == dev else copy.deepcopy(params).to(dev)
-    return _tree_map(lambda t: t.to(dev), params)
+    return tree_map(lambda t: t.to(dev), params)
 
 
 def pipeline_apply(stacked_params, x: torch.Tensor, stage_fn: Callable, mesh: Mesh,

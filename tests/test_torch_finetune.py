@@ -37,6 +37,7 @@ from eioku_tpu_torch.db.connection import Database
 from eioku_tpu_torch.db.migrations import run_migrations
 from eioku_tpu_torch.models.checkpoint import load_params, save_params
 from eioku_tpu_torch.models.embed import minilm as pml
+from eioku_tpu_torch.parallel import mesh as port_mesh
 from eioku_tpu_torch.parallel.train import adamw, info_nce_loss, make_train_step
 
 TINY = dict(vocab_size=30522, dim=32, n_layers=2, n_heads=2, ffn_dim=64,
@@ -46,6 +47,7 @@ LR = 1e-3
 PARAM_TOL = 1e-3 * LR
 STEPS = 3
 KEY_BIAS_TOL = 2 * LR * STEPS * 1.01  # opposite steps of about lr each
+CPU = torch.device("cpu")
 BATCH = 8
 WORDS = ("meeting beach sunset dog cat birthday cake garden hiking snow city car "
          "bridge concert guitar kitchen recipe soccer goal lake boat camera").split()
@@ -54,6 +56,20 @@ WORDS = ("meeting beach sunset dog cat birthday cake garden hiking snow city car
 def _texts(n: int, seed: int = 0) -> list[str]:
     rng = np.random.default_rng(seed)
     return [" ".join(rng.choice(WORDS, int(rng.integers(3, 16)))) for _ in range(n)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """One intra-op thread for torch on the CPU (as tests/test_torch_ocr.py
+    does): the suite's workers share the cores, and with a pool each the
+    many small ops of these steps wait on descheduled threads (a step of
+    milliseconds took tens of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -215,10 +231,10 @@ def test_finetune_embedder_matches_jax(tree, corpus, tmp_path, monkeypatch):
 
 
 def test_finetune_rounds_the_batch_as_jax(tree, corpus, tmp_path, monkeypatch):
-    """An odd batch: on its one CPU device the port does not round it; told
-    that it sees as many devices as the JAX package (conftest's host
-    devices), it rounds it as the JAX mesh's data axis does, draws the same
-    pairs and takes the same step."""
+    """An odd batch: on its one CPU device the port does not round it; given
+    as many devices as the JAX package (conftest's host devices, as
+    `local_devices` of [cpu] * n), it rounds it as the JAX mesh's data axis
+    does, draws the same pairs and takes the same step."""
     from eioku_tpu.db.connection import Database as JaxDatabase
 
     n = len(jax.devices())
@@ -240,35 +256,60 @@ def test_finetune_rounds_the_batch_as_jax(tree, corpus, tmp_path, monkeypatch):
         drawn["port"].clear()
         want = jax_ft.finetune_embedder(_ctx(jdb, str(tmp_path / "jax")), steps=1,
                                         batch_size=odd, lr=LR)
-        monkeypatch.setattr(port_ft, "visible_devices", lambda dev: n)
+        monkeypatch.setattr(port_mesh, "local_devices", lambda device=None: [CPU] * n)
         got = port_ft.finetune_embedder(_ctx(pdb, str(tmp_path / "port")), steps=1,
                                         batch_size=odd, lr=LR, device="cpu")
     finally:
         jdb.close()
         pdb.close()
     assert want["mesh"]["data"] == n and len(drawn["jax"]) == n
+    assert got["mesh"] == want["mesh"]
     assert drawn["port"] == drawn["jax"]
     np.testing.assert_allclose(got["first_loss"], want["first_loss"],
                                rtol=LOSS_RTOL, atol=LOSS_ATOL)
 
 
-def test_finetune_refuses_sharding_the_model(corpus, tmp_path, monkeypatch):
-    """model_parallel 2 on two cards (stubbed) is where the JAX package
-    shards MiniLM; on one card it falls back to 1, as JAX's does."""
-    from eioku_tpu_torch.ml.engine import ModelNotAvailable
+@pytest.mark.parametrize("model_parallel,n_devices", [
+    (2, 8),  # MiniLM tensor-parallel over 2 of 8: the (data 4, model 2) mesh
+    (3, 8),  # 3 does not divide 8: model_parallel 1 on both sides
+    (4, 8),  # 4 does not divide TINY's 2 heads: the warning and model_parallel 1
+    (2, 1),  # one device: model_parallel 1, where JAX's 8 host devices shard
+])
+def test_finetune_model_parallel_matches_jax(tree, corpus, tmp_path, monkeypatch,
+                                             model_parallel, n_devices):
+    """finetune_embedder(model_parallel=...) on the port's mesh of
+    n_devices CPU entries against the JAX package's on conftest's host
+    devices: the losses, the saved checkpoint (in either package's
+    load_minilm) and stats["mesh"], which is the JAX package's
+    `dict(mesh.shape)` wherever the two see as many devices."""
+    from eioku_tpu.db.connection import Database as JaxDatabase
 
-    db = Database(corpus)
-    ctx = _ctx(db, str(tmp_path / "c"))
+    jcfg, pcfg = jml.MiniLMConfig(**TINY), pml.MiniLMConfig(**TINY)
+    monkeypatch.setattr(jax_ft, "load_minilm", lambda cache: (
+        jax.tree.map(jnp.asarray, tree), jcfg, False))
     monkeypatch.setattr(port_ft, "load_minilm", lambda cache, device="cpu": (
-        pml.init_minilm(pml.MiniLMConfig(**TINY), torch.Generator().manual_seed(0)),
-        pml.MiniLMConfig(**TINY), False))
+        _port_model(tree).to(device), pcfg, False))
+    monkeypatch.setattr(port_mesh, "local_devices", lambda device=None: [CPU] * n_devices)
+    caches = {side: str(tmp_path / side) for side in ("jax", "port")}
+    jdb, pdb = JaxDatabase(corpus), Database(corpus)
     try:
-        stats = port_ft.finetune_embedder(ctx, steps=1, batch_size=4, model_parallel=2,
-                                          device="cpu")
-        assert stats["mesh"] == {"data": 1, "model": 1}
-        monkeypatch.setattr(port_ft, "resolve_device", lambda d: torch.device("cuda"))
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(ModelNotAvailable, match="model_parallel=2"):
-            port_ft.finetune_embedder(ctx, steps=1, batch_size=4, model_parallel=2)
+        want = jax_ft.finetune_embedder(_ctx(jdb, caches["jax"]), steps=STEPS,
+                                        batch_size=BATCH, lr=LR,
+                                        model_parallel=model_parallel)
+        got = port_ft.finetune_embedder(_ctx(pdb, caches["port"]), steps=STEPS,
+                                        batch_size=BATCH, lr=LR, device="cpu",
+                                        model_parallel=model_parallel)
     finally:
-        db.close()
+        jdb.close()
+        pdb.close()
+    if n_devices == len(jax.devices()):
+        assert got["mesh"] == want["mesh"]
+    else:
+        assert got["mesh"] == {"data": 1, "model": 1} != want["mesh"]
+    assert want["mesh"]["model"] == (2 if model_parallel == 2 else 1)
+    for k in ("first_loss", "last_loss"):
+        np.testing.assert_allclose(got[k], want[k], rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    jparams, _, pre = jml.load_minilm(caches["port"], cfg=jcfg)
+    model, _, pre2 = pml.load_minilm(caches["jax"], cfg=pcfg)
+    assert pre and pre2
+    assert_trees_close(pml.to_jax_params(model), jax.tree.map(np.asarray, jparams))

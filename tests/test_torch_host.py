@@ -115,7 +115,10 @@ CHANGED = {
                         "EIOKU_FORCE_CPU picks the engine's and the indexes' "
                         "device and the process group's backend (the port's "
                         "initialize_distributed)"),
-    "cli.py": ({"_ctx"}, "_ctx takes the API's device rule"),
+    "cli.py": ({"_ctx", "cmd_finetune"},
+               "_ctx takes the API's device rule; cmd_finetune joins the process "
+               "group first (the port's initialize_distributed), as the worker does, "
+               "since the port's mesh spans the ranks of that group"),
 }
 
 
