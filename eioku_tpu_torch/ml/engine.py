@@ -19,6 +19,7 @@ from typing import Any, Callable
 import torch
 
 from eioku_tpu_torch.utils.device import resolve_device
+from eioku_tpu_torch.utils.metrics import METRICS
 
 
 class ModelNotAvailable(RuntimeError):
@@ -79,7 +80,8 @@ class InferenceEngine:
         fn = self._dispatch.get(task_type)
         if fn is None:
             raise ModelNotAvailable(f"unknown task type {task_type!r}")
-        return fn(video_path, config or {})
+        with METRICS.task(task_type):  # the root of the task's spans
+            return fn(video_path, config or {})
 
     @staticmethod
     def _not_ported(task_type: str) -> Callable[[str, dict], Any]:

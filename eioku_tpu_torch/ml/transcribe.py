@@ -80,6 +80,7 @@ from eioku_tpu_torch.models.whisper.weights import load_whisper_checkpoint
 from eioku_tpu_torch.parallel import mesh as mesh_lib
 from eioku_tpu_torch.utils import progress
 from eioku_tpu_torch.utils.device import resolve_device
+from eioku_tpu_torch.utils.metrics import METRICS
 
 log = logging.getLogger(__name__)
 
@@ -230,25 +231,29 @@ def run_transcription(video_path: str, config: dict,
                       device: str | torch.device | None = None) -> list[dict]:
     dev = resolve_device(device)
     load_dtype = _load_dtype(config)
-    audio_path = audio_io.find_audio_for_video(video_path)
+    with METRICS.span("audio.find"):
+        audio_path = audio_io.find_audio_for_video(video_path)
     if audio_path is None:
         log.warning("no audio stream available for %s (no wav/mp3/ogg/flac "
                     "sidecar); emitting empty transcript", video_path)
         return []
-    audio = audio_io.load_audio(audio_path)
+    with METRICS.span("audio.load"):
+        audio = audio_io.load_audio(audio_path)
     if len(audio) == 0:
         return []
     language = config.get("language")
     vad = bool(config.get("vad_filter", True))
-    windows = audio_io.split_windows(audio, window_s=WINDOW_S, vad=vad,
-                                     model_cache_dir=model_cache_dir, device=dev)
+    with METRICS.span("audio.windows"):
+        windows = audio_io.split_windows(audio, window_s=WINDOW_S, vad=vad,
+                                         model_cache_dir=model_cache_dir, device=dev)
     if not windows:
         return []
 
     variant = _normalize_variant(config.get("model", "large-v3"))
-    model, cfg, pretrained = _load_model(
-        variant, model_cache_dir, load_dtype,
-        bool(config.get("random_full_size", False)), dev)
+    with METRICS.span("load_model"):
+        model, cfg, pretrained = _load_model(
+            variant, model_cache_dir, load_dtype,
+            bool(config.get("random_full_size", False)), dev)
     tokens = WhisperTokens(cfg.vocab_size)
     text_decoder = WhisperTextDecoder.from_cache_dir(model_cache_dir,
                                                      cfg.vocab_size)
@@ -324,8 +329,10 @@ def run_transcription(video_path: str, config: dict,
 
     if language is None and pretrained:
         # auto-detect from the first voiced window
-        first_enc = whisper_encode(model, mel_of(windows[0][1][None]))
-        language = LANGUAGES[int(whisper_detect_language(model, first_enc)[0])]
+        with METRICS.span("lang_detect"):
+            first_enc = whisper_encode(model, mel_of(windows[0][1][None]))
+            language = LANGUAGES[int(whisper_detect_language(model, first_enc)[0])]
+        METRICS.count("window_slots")
         log.info("auto-detected language", extra={"language": language})
     task = str(config.get("task", "transcribe"))
     if task not in ("transcribe", "translate"):
@@ -445,26 +452,32 @@ def run_transcription(video_path: str, config: dict,
     for i in range(0, len(windows), batch_size):
         chunk = windows[i:i + batch_size]
         pad = batch_size - len(chunk)
-        wav = np.stack([c[1] for c in chunk] +
-                       [np.zeros(SAMPLES_PER_WINDOW, np.float32)] * pad)
-        mel = mel_of(wav)
-        enc = encode(mel)
-        init = torch.tensor([init_seq] * batch_size, dtype=torch.long, device=dev)
-        if spec_draft is not None:
-            d_enc = whisper_encode(spec_draft, mel)
-            out, accept_rate = speculative_greedy_decode(
-                model, spec_draft, enc, d_enc, init, suppress_always,
-                suppress_begin, max_len=max_tokens + sot_index,
-                gamma=int(config.get("speculative_gamma", 4)))
-            avg_lp, no_speech = score_sequences(
-                model, enc, out, len(init_seq), suppress_always, suppress_begin)
-            log.info("speculative decode",
-                     extra={"accept_rate": round(accept_rate, 3)})
-        else:
-            out, avg_lp, no_speech = decode(enc, init, **decode_kw)
-        out = out.cpu().numpy()
-        avg_lp = avg_lp.cpu().numpy()
-        no_speech = no_speech.cpu().numpy()
+        with METRICS.span("mel"):
+            wav = np.stack([c[1] for c in chunk] +
+                           [np.zeros(SAMPLES_PER_WINDOW, np.float32)] * pad)
+            mel = mel_of(wav)
+        METRICS.count("window_slots", batch_size)
+        METRICS.count("padded_slots", pad)
+        with METRICS.span("encode"):
+            enc = encode(mel)
+        with METRICS.span("decode"):
+            init = torch.tensor([init_seq] * batch_size, dtype=torch.long, device=dev)
+            if spec_draft is not None:
+                d_enc = whisper_encode(spec_draft, mel)
+                out, accept_rate = speculative_greedy_decode(
+                    model, spec_draft, enc, d_enc, init, suppress_always,
+                    suppress_begin, max_len=max_tokens + sot_index,
+                    gamma=int(config.get("speculative_gamma", 4)))
+                avg_lp, no_speech = score_sequences(
+                    model, enc, out, len(init_seq), suppress_always, suppress_begin)
+                log.info("speculative decode",
+                         extra={"accept_rate": round(accept_rate, 3)})
+            else:
+                out, avg_lp, no_speech = decode(enc, init, **decode_kw)
+        with METRICS.span("copy_back"):
+            out = out.cpu().numpy()
+            avg_lp = avg_lp.cpu().numpy()
+            no_speech = no_speech.cpu().numpy()
 
         def _fallback_needed(j: int) -> bool:
             return needs_temperature_fallback(
@@ -473,28 +486,31 @@ def run_transcription(video_path: str, config: dict,
                              text_decoder),
                 logprob_threshold, no_speech_threshold, cr_threshold)
 
-        failed = [j for j in range(len(chunk)) if _fallback_needed(j)] \
-            if temperatures else []
-        for ti, temp in enumerate(temperatures):
-            if not failed:
-                break
-            # re-decode the whole batch with sampling chains at this
-            # temperature and adopt the new rows for the failed windows only;
-            # the last rung is adopted unconditionally (the gate still applies)
-            gen = torch.Generator(device=dev).manual_seed((i << 8) | ti)
-            out_t, lp_t, _ = decode(enc, init, **decode_kw, sample=True,
-                                    temperature=temp, generator=gen)
-            out[failed] = out_t.cpu().numpy()[failed]
-            avg_lp[failed] = lp_t.cpu().numpy()[failed]
-            failed = [j for j in failed if _fallback_needed(j)]
-            log.info("temperature fallback", extra={
-                "temperature": temp, "remaining": len(failed)})
-        # one teacher-forced pass over the (adopted) rows for the words
-        align = alignment(out, enc, [s for s, _ in chunk]) if want_words else None
-        for j, (start_ms, _) in enumerate(chunk):
-            emit_window(out[j].tolist(), len(init_seq), float(avg_lp[j]),
-                        float(no_speech[j]), start_ms,
-                        align[j] if align is not None else None)
+        with METRICS.span("fallback"):
+            failed = [j for j in range(len(chunk)) if _fallback_needed(j)] \
+                if temperatures else []
+            for ti, temp in enumerate(temperatures):
+                if not failed:
+                    break
+                # re-decode the whole batch with sampling chains at this
+                # temperature and adopt the new rows for the failed windows
+                # only; the last rung is adopted unconditionally (the gate
+                # still applies)
+                gen = torch.Generator(device=dev).manual_seed((i << 8) | ti)
+                out_t, lp_t, _ = decode(enc, init, **decode_kw, sample=True,
+                                        temperature=temp, generator=gen)
+                out[failed] = out_t.cpu().numpy()[failed]
+                avg_lp[failed] = lp_t.cpu().numpy()[failed]
+                failed = [j for j in failed if _fallback_needed(j)]
+                log.info("temperature fallback", extra={
+                    "temperature": temp, "remaining": len(failed)})
+        with METRICS.span("rows"):
+            # one teacher-forced pass over the (adopted) rows for the words
+            align = alignment(out, enc, [s for s, _ in chunk]) if want_words else None
+            for j, (start_ms, _) in enumerate(chunk):
+                emit_window(out[j].tolist(), len(init_seq), float(avg_lp[j]),
+                            float(no_speech[j]), start_ms,
+                            align[j] if align is not None else None)
         progress.report((i + len(chunk)) / len(windows))
     return results
 
@@ -527,29 +543,37 @@ def _run_conditioned(windows, model, tokens, sot, suppress_always,
         else:
             ctx = []
         prompt = ([tokens.sot_prev] + ctx if ctx else []) + sot
-        enc = whisper_encode(model, mel_of(wav[None]))
-        init = torch.tensor([prompt], dtype=torch.long, device=dev)
+        with METRICS.span("mel"):
+            mel = mel_of(wav[None])
+        METRICS.count("window_slots")
+        with METRICS.span("encode"):
+            enc = whisper_encode(model, mel)
         kw = dict(max_len=len(prompt) + max_tokens, beam_size=beam_size,
                   timestamps=use_timestamps,
                   sot_index=len(prompt) - len(sot))  # the gate reads SOT's step
-        out, avg_lp, no_speech = whisper_decode_windows(
-            model, enc, init, suppress_always, suppress_begin, **kw)
-        for ti, temp in enumerate(temperatures):
-            if not needs_temperature_fallback(
-                    float(avg_lp[0]), float(no_speech[0]),
-                    decoded_text(out[0].tolist(), len(prompt), tokens,
-                                 text_decoder),
-                    logprob_threshold, no_speech_threshold, cr_threshold):
-                break
-            gen = torch.Generator(device=dev).manual_seed((w_idx << 8) | ti)
-            out, avg_lp, _ = whisper_decode_windows(
-                model, enc, init, suppress_always, suppress_begin, **kw,
-                sample=True, temperature=temp, generator=gen)
-        out = out.cpu().numpy()
-        align = alignment(out, enc, [start_ms]) if want_words else None
-        gen_text = emit_window(out[0].tolist(), len(prompt), float(avg_lp[0]),
-                               float(no_speech[0]), start_ms,
-                               align[0] if align is not None else None)
+        with METRICS.span("decode"):
+            init = torch.tensor([prompt], dtype=torch.long, device=dev)
+            out, avg_lp, no_speech = whisper_decode_windows(
+                model, enc, init, suppress_always, suppress_begin, **kw)
+        with METRICS.span("fallback"):
+            for ti, temp in enumerate(temperatures):
+                if not needs_temperature_fallback(
+                        float(avg_lp[0]), float(no_speech[0]),
+                        decoded_text(out[0].tolist(), len(prompt), tokens,
+                                     text_decoder),
+                        logprob_threshold, no_speech_threshold, cr_threshold):
+                    break
+                gen = torch.Generator(device=dev).manual_seed((w_idx << 8) | ti)
+                out, avg_lp, _ = whisper_decode_windows(
+                    model, enc, init, suppress_always, suppress_begin, **kw,
+                    sample=True, temperature=temp, generator=gen)
+        with METRICS.span("copy_back"):
+            out = out.cpu().numpy()
+        with METRICS.span("rows"):
+            align = alignment(out, enc, [start_ms]) if want_words else None
+            gen_text = emit_window(out[0].tolist(), len(prompt), float(avg_lp[0]),
+                                   float(no_speech[0]), start_ms,
+                                   align[0] if align is not None else None)
         if gen_text is None:
             prev = []  # reset the context after a gated window
         else:

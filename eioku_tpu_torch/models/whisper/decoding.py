@@ -37,6 +37,7 @@ from eioku_tpu_torch.models.whisper.model import (
 )
 from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
 from eioku_tpu_torch.parallel.mesh import Mesh
+from eioku_tpu_torch.utils.metrics import METRICS
 
 # Token ids of sounds/symbols that never occur in speech in the multilingual
 # Whisper vocabulary: the published `suppress_tokens` list (ids below the
@@ -175,21 +176,23 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     suppress_begin = suppress_begin.to(dev)
 
     step_fn = step_fn or decoder_step
-    # [L, B, S, d]: beams fold into the token batch, cross-KV stays one row
-    # per window (decoder_step groups each window's k beams onto it)
-    cross_k, cross_v = (cross_kv_fn or precompute_cross_kv)(model, enc_out)
-    tokens = torch.full((bk, max_len), eot, dtype=torch.long, device=dev)
-    tokens[:, :n_init] = initial_tokens.to(dev, torch.long).repeat_interleave(k, 0)
+    with METRICS.span("decode.cross_kv"):
+        # [L, B, S, d]: beams fold into the token batch, cross-KV stays one
+        # row per window (decoder_step groups each window's k beams onto it)
+        cross_k, cross_v = (cross_kv_fn or precompute_cross_kv)(model, enc_out)
+        tokens = torch.full((bk, max_len), eot, dtype=torch.long, device=dev)
+        tokens[:, :n_init] = initial_tokens.to(dev, torch.long).repeat_interleave(k, 0)
 
-    def new_cache(ck: torch.Tensor) -> torch.Tensor:  # beside its cross K
-        return torch.zeros((cfg.n_dec_layers, bk, max_len, kv_dim or cfg.dim),
-                           dtype=enc_out.dtype, device=ck.device)
-    self_k, self_v = _each(new_cache, cross_k), _each(new_cache, cross_k)
+        def new_cache(ck: torch.Tensor) -> torch.Tensor:  # beside its cross K
+            return torch.zeros((cfg.n_dec_layers, bk, max_len, kv_dim or cfg.dim),
+                               dtype=enc_out.dtype, device=ck.device)
+        self_k, self_v = _each(new_cache, cross_k), _each(new_cache, cross_k)
     no_speech = torch.zeros((bk,), dtype=torch.float32, device=dev)
-    for pos in range(n_init - 1):  # prefill: all but the last prompt token
-        logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos)
-        if pos == sot_index:
-            no_speech = torch.softmax(logits.float(), dim=-1)[:, tk.no_speech]
+    with METRICS.span("decode.prefill"):
+        for pos in range(n_init - 1):  # prefill: all but the last prompt token
+            logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos)
+            if pos == sot_index:
+                no_speech = torch.softmax(logits.float(), dim=-1)[:, tk.no_speech]
 
     if sample:  # sampling chains are independent from the start: all live
         sum_lp = torch.zeros((b, k), dtype=torch.float32, device=dev)
@@ -203,48 +206,55 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     rows = torch.arange(b, device=dev)
 
     pos = n_init - 1
-    while pos < max_len - 1 and not bool(finished.all()):
-        logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos).float()
-        logits = logits.masked_fill(suppress_always[None], NEG)
-        if pos == n_init - 1:
-            logits = logits.masked_fill(suppress_begin[None], NEG)
-        if timestamps:
-            logits = _apply_timestamp_rules(logits, tokens, pos, n_init, ts_begin,
-                                            eot, max_initial_ts_index)
-        logprobs = torch.log_softmax(logits, dim=-1)  # [BK, V]
-        # frozen (finished) beams contribute one candidate: EOT at 0
-        logprobs = torch.where(finished.reshape(bk)[:, None], eot_only[None],
-                               logprobs)
-        if sample:
-            # independent chains, Gumbel-max draws from softmax(lp / T); no
-            # candidate pooling, no KV reordering
-            u = torch.rand(logprobs.shape, generator=generator, device=dev)
-            gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-            sampled = (logprobs / max(temperature, 1e-3) + gumbel).argmax(dim=-1)
-            chosen_lp = logprobs.gather(1, sampled[:, None])[:, 0]
-            new_tok = sampled.reshape(b, k)
-            was_finished = finished
-            sum_lp = sum_lp + torch.where(was_finished, 0.0, chosen_lp.reshape(b, k))
-        else:
-            cand = (sum_lp.reshape(bk, 1) + logprobs).reshape(b, k * vocab)
-            top_lp, top_idx = _top_k_stable(cand, k)  # [B, K]
-            src_beam = top_idx // vocab
-            new_tok = top_idx % vocab
-            if k > 1:  # greedy (k = 1) needs no beam reordering
-                flat_src = (rows[:, None] * k + src_beam).reshape(bk)
-                tokens = tokens.index_select(0, flat_src)
-                self_k, self_v = (_each(lambda c: c.index_select(1, flat_src.to(c.device)),
-                                        cache) for cache in (self_k, self_v))
-                no_speech = no_speech.index_select(0, flat_src)
-                n_gen = n_gen.gather(1, src_beam)
-                was_finished = finished.gather(1, src_beam)
-            else:
+    while pos < max_len - 1:
+        with METRICS.span("decode.sync"):  # the step's one wait for the device
+            done = bool(finished.all())
+        if done:
+            break
+        with METRICS.span("decode.forward"):
+            logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos)
+        with METRICS.span("decode.select"):
+            logits = logits.float().masked_fill(suppress_always[None], NEG)
+            if pos == n_init - 1:
+                logits = logits.masked_fill(suppress_begin[None], NEG)
+            if timestamps:
+                logits = _apply_timestamp_rules(logits, tokens, pos, n_init, ts_begin,
+                                                eot, max_initial_ts_index)
+            logprobs = torch.log_softmax(logits, dim=-1)  # [BK, V]
+            # frozen (finished) beams contribute one candidate: EOT at 0
+            logprobs = torch.where(finished.reshape(bk)[:, None], eot_only[None],
+                                   logprobs)
+            if sample:
+                # independent chains, Gumbel-max draws from softmax(lp / T); no
+                # candidate pooling, no KV reordering
+                u = torch.rand(logprobs.shape, generator=generator, device=dev)
+                gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+                sampled = (logprobs / max(temperature, 1e-3) + gumbel).argmax(dim=-1)
+                chosen_lp = logprobs.gather(1, sampled[:, None])[:, 0]
+                new_tok = sampled.reshape(b, k)
                 was_finished = finished
-            sum_lp = top_lp
-        n_gen = n_gen + (~was_finished).long()
-        finished = was_finished | (new_tok == eot)
-        tokens[:, pos + 1] = new_tok.reshape(bk)
+                sum_lp = sum_lp + torch.where(was_finished, 0.0, chosen_lp.reshape(b, k))
+            else:
+                cand = (sum_lp.reshape(bk, 1) + logprobs).reshape(b, k * vocab)
+                top_lp, top_idx = _top_k_stable(cand, k)  # [B, K]
+                src_beam = top_idx // vocab
+                new_tok = top_idx % vocab
+                if k > 1:  # greedy (k = 1) needs no beam reordering
+                    flat_src = (rows[:, None] * k + src_beam).reshape(bk)
+                    tokens = tokens.index_select(0, flat_src)
+                    self_k, self_v = (_each(lambda c: c.index_select(1, flat_src.to(c.device)),
+                                            cache) for cache in (self_k, self_v))
+                    no_speech = no_speech.index_select(0, flat_src)
+                    n_gen = n_gen.gather(1, src_beam)
+                    was_finished = finished.gather(1, src_beam)
+                else:
+                    was_finished = finished
+                sum_lp = top_lp
+            n_gen = n_gen + (~was_finished).long()
+            finished = was_finished | (new_tok == eot)
+            tokens[:, pos + 1] = new_tok.reshape(bk)
         pos += 1
+    METRICS.count("decode_steps", pos)  # prefill's n_init - 1 and the loop's
 
     avg_lp = sum_lp / n_gen.float().clamp(min=1.0)
     # beams that closed with EOT outrank ones cut off at max_len

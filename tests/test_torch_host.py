@@ -101,8 +101,12 @@ REFERENCE_PREFIX = re.compile(rb"/\w+/reference/")
 # Host modules the port changes: the top-level names that differ, and why.
 # Every other top-level class, function and assignment must be equal.
 CHANGED = {
-    "utils/metrics.py": ({"maybe_profile"},
-                         "traces with torch.profiler, not jax.profiler"),
+    "utils/metrics.py": ({"maybe_profile", "merge_spans", "_events_close", "METRICS",
+                          "TaskMetrics", "_Task", "_Span", "_OPEN_SPAN", "_KEPT_SPANS",
+                          "_NO_SPAN", "RECENT_TASKS", "_SPAN_TRACK"},
+                         "traces with torch.profiler, not jax.profiler, and appends the "
+                         "program's spans to that trace; METRICS is a registry that also "
+                         "keeps the spans and counters of the port's tasks"),
     "api/app.py": ({"build_context"},
                    "the semantic index, the reranker and the visual index "
                    "take a device"),

@@ -1,10 +1,9 @@
-"""Where the time goes in the PyTorch port's slices, on one GPU.
+"""Where the time goes in the PyTorch port's visual pass, on one GPU.
 
-    python3 tools/torch_profile_slice.py [visual|transcription]
+    python3 tools/torch_profile_slice.py
 
-visual (the default) uses chip_smoke.py's clip (60 s, 1280x720, 30 fps,
-planted colour cuts) and two task configs, random weights: scenes + YOLOv8n
-objects (batch 64), and the full pass of chip_smoke.py (scenes, objects,
+It uses chip_smoke.py's clip (60 s, 1280x720, 30 fps, planted colour cuts)
+and two task configs, random weights: scenes + YOLOv8n objects (batch 64), and the full pass of chip_smoke.py (scenes, objects,
 faces with embeddings, places, at their defaults). On the card it measures:
 
 1. decode only: the pass's own decode loop (same sampling grid, geometry and
@@ -18,15 +17,8 @@ faces with embeddings, places, at their defaults). On the card it measures:
    products, copies, the rest), so that K1's and K2's device time inside
    the pass shows.
 
-transcription uses chip_smoke.py's 150 s wav (4 voiced 30 s windows) and
-its full-width config (Whisper large-v3, random weights, bf16, batch 4, 224
-tokens). After a warm-up run of the task it times one run of the whole task
-(no profiler), then profiles, each on its own, the encoder call on the 4
-windows and the task's greedy decode cut to its first DECODE_PROFILE_TOKENS
-positions (a full decode is ~570k device events, more than the profiler's
-post-processing handles in minutes). Each profile's device time is sorted
-into K3, matrix products (cuBLAS/cuDNN kernels) and the rest; the decode's
-is also given per step.
+Transcription's time is the benchmark's (`benchmark/run.py --trace 1`) and
+the program's own spans (`eioku_tpu_torch/utils/metrics.py`).
 
 Prints a human-readable report on stderr and one JSON line on stdout.
 Needs CUDA; exits nonzero without it.
@@ -48,7 +40,6 @@ VISUAL_CONFIGS = {
     "scenes+objects": {"scene_detection": {}, "object_detection": {"batch_size": 64}},
     "full": chip_smoke.VISUAL_CONFIG,
 }
-DECODE_PROFILE_TOKENS = 32
 # (module, attribute) whose wall seconds a visual pass reports: the whole
 # post-pass embedding step, and the ArcFace batches inside it
 HOST_SPANS = (("eioku_tpu_torch.ml.combined", "attach_face_embeddings"),
@@ -174,74 +165,6 @@ def _profiled(fn):
     return out, prof, wall_s
 
 
-def transcription(card: str) -> dict:
-    import numpy as np
-    import torch
-
-    from eioku_tpu_torch.ml import audio_io, transcribe
-    from eioku_tpu_torch.ml.engine import InferenceEngine
-    from eioku_tpu_torch.models.whisper.decoding import (
-        build_suppress_masks,
-        whisper_decode_windows,
-    )
-    from eioku_tpu_torch.models.whisper.mel import log_mel_spectrogram
-    from eioku_tpu_torch.models.whisper.model import whisper_encode
-    from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
-
-    config = chip_smoke.WHISPER_CONFIG
-    dev = torch.device("cuda")
-    with tempfile.TemporaryDirectory(prefix="eioku_profile_") as workdir:
-        wav = os.path.join(workdir, "speech.wav")
-        chip_smoke.write_speech_wav(wav)
-        engine = InferenceEngine(device="cuda")
-        engine.run_task("transcription", wav, config)  # warm-up, loads the model
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        engine.run_task("transcription", wav, config)
-        torch.cuda.synchronize()
-        task_wall_s = time.perf_counter() - t
-        model, cfg, _ = transcribe._load_model(
-            config["model"], None, "bfloat16", config["random_full_size"], dev)
-        windows = audio_io.split_windows(audio_io.load_wav(wav))
-        mel = log_mel_spectrogram(torch.from_numpy(
-            np.stack([w for _, w in windows])).to(dev), n_mels=cfg.n_mels)
-        enc, prof, wall = _profiled(lambda: whisper_encode(model, mel))
-        encode = _breakdown(prof, wall)
-        tk = WhisperTokens(cfg.vocab_size)
-        sot = tk.sot_sequence("en")  # the task's greedy, no-timestamp prompt
-        init = torch.tensor([sot] * len(windows), device=dev)
-        sup_a, sup_b = build_suppress_masks(tk, timestamps=False)
-        out, prof, wall = _profiled(lambda: whisper_decode_windows(
-            model, enc, init, sup_a, sup_b, max_len=DECODE_PROFILE_TOKENS,
-            beam_size=1, timestamps=False))
-        decode = _breakdown(prof, wall)
-        steps = DECODE_PROFILE_TOKENS - 1  # prefill + generated positions
-        decode["steps"] = steps
-        decode["launches_per_step"] = decode["device_launches"] / steps
-        decode["wall_ms_per_step"] = wall / steps * 1e3
-        decode["device_busy_ms_per_step"] = decode["device_busy_s"] / steps * 1e3
-    report = {"card": card, "mode": "transcription", "config": config,
-              "windows": len(windows), "task_wall_s": task_wall_s,
-              "encode": encode, "decode": decode}
-    print(f"card: {card}", file=sys.stderr)
-    print(f"task: {task_wall_s:.3f} s wall (no profiler)", file=sys.stderr)
-    print(f"decode: {decode['launches_per_step']:.0f} launches, "
-          f"{decode['wall_ms_per_step']:.2f} ms wall and "
-          f"{decode['device_busy_ms_per_step']:.2f} ms device busy per step",
-          file=sys.stderr)
-    for name in ("encode", "decode"):
-        part = report[name]
-        print(f"{name}: {part['wall_s']:.3f} s wall, device busy "
-              f"{part['device_busy_s']:.3f} s, idle share "
-              f"{part['device_idle_share']:.3f}, {part['device_launches']} launches",
-              file=sys.stderr)
-        for cat, ms in part["device_ms_by_category"].items():
-            print(f"  {ms:9.3f} ms  [{cat}]", file=sys.stderr)
-        for kname, ms in part["device_ms_by_kernel"].items():
-            print(f"  {ms:9.3f} ms  {kname[:100]}", file=sys.stderr)
-    return report
-
-
 def visual(card: str) -> dict:
     import torch
 
@@ -289,13 +212,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: needs CUDA", file=sys.stderr)
         return 2
-    modes = {"visual": visual, "transcription": transcription}
-    mode = sys.argv[1] if len(sys.argv) > 1 else "visual"
-    if mode not in modes:
-        print(f"FAILED: unknown mode {mode!r} (visual or transcription)",
-              file=sys.stderr)
-        return 2
-    print(json.dumps(modes[mode](chip_smoke.nvidia_smi_line())))
+    print(json.dumps(visual(chip_smoke.nvidia_smi_line())))
     return 0
 
 
