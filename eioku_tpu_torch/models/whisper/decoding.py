@@ -9,7 +9,9 @@ the timestamp rules, a no-speech probability read after SOT, and beam search
 only candidate is EOT at logprob 0). The JAX package's `lax.while_loop` is a
 Python loop here that stops when every row has finished or the length cap
 is reached; each step is one `decoder_step` plus a few tensor operations on
-the device.
+the device. On the card the decode runs in a `StepGraph`'s buffers, whose
+addresses stay fixed (beams are reordered in place), so that each
+`decoder_step` replays one CUDA graph.
 
 Timestamp rules (the public Whisper reference decoder's):
   - the no-timestamps token is suppressed when timestamps are requested;
@@ -23,6 +25,8 @@ Timestamp rules (the public Whisper reference decoder's):
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
@@ -34,6 +38,7 @@ from eioku_tpu_torch.models.whisper.model import (
     precompute_cross_kv,
     precompute_cross_kv_tp,
     shard_whisper,
+    step_graph,
 )
 from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
 from eioku_tpu_torch.parallel.mesh import Mesh
@@ -132,6 +137,30 @@ def _each(fn, x):
     return [fn(t) for t in x] if isinstance(x, list) else fn(x)
 
 
+def reorder_beams(tokens: torch.Tensor, self_k, self_v, src: torch.Tensor,
+                  live: int) -> None:
+    """Take rows `src` [BK] of tokens [BK, max_len] and of the caches
+    [L, BK, max_len, d] (or per-shard lists of them) in place, over the
+    live prefix [:live] alone: the buffers keep their addresses, which a
+    captured decoder step reads and writes. Past the prefix every row holds
+    the same (EOT, zeros), so the rows there need no move."""
+    tokens[:, :live] = tokens[:, :live].index_select(0, src)
+    for cache in (self_k, self_v):
+        _each(lambda c: _take_rows(c, src.to(c.device), live), cache)
+
+
+def _take_rows(cache: torch.Tensor, src: torch.Tensor, live: int) -> None:
+    """cache[:, :, :live] = cache[:, :, :live][:, src], through a scratch
+    the size of the whole cache: every step then asks the allocator for one
+    size, where a prefix-sized scratch, a position longer each step, would
+    leave a cached block of each size behind (tens of GB over a decode)."""
+    prefix = cache[:, :, :live]
+    scratch = torch.empty(cache.numel(), dtype=cache.dtype, device=cache.device)
+    out = scratch[:prefix.numel()].view(prefix.shape)
+    torch.index_select(prefix, 1, src, out=out)
+    prefix.copy_(out)
+
+
 @torch.no_grad()
 def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
                            initial_tokens: torch.Tensor,
@@ -159,7 +188,9 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     (`whisper_decode_windows_tp`) swaps in `decoder_step_tp` with per-shard
     lists of cross K/V and of caches of kv_dim features (each cache on its
     shard's device); the defaults are the one-device `decoder_step`,
-    `precompute_cross_kv` and the model's width.
+    `precompute_cross_kv` and the model's width, and with them, on the
+    current card and where the decoder's linears are float ones, the decode
+    runs in the buffers of `step_graph` and its steps replay a CUDA graph.
     Returns (tokens [B, max_len] int64, the best beam per window, prompt
     included and EOT-padded; avg_logprob [B] float32 over generated tokens
     incl. EOT; no_speech_prob [B] float32)."""
@@ -175,93 +206,102 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     suppress_always = suppress_always.to(dev)
     suppress_begin = suppress_begin.to(dev)
 
-    step_fn = step_fn or decoder_step
-    with METRICS.span("decode.cross_kv"):
-        # [L, B, S, d]: beams fold into the token batch, cross-KV stays one
-        # row per window (decoder_step groups each window's k beams onto it)
-        cross_k, cross_v = (cross_kv_fn or precompute_cross_kv)(model, enc_out)
-        tokens = torch.full((bk, max_len), eot, dtype=torch.long, device=dev)
-        tokens[:, :n_init] = initial_tokens.to(dev, torch.long).repeat_interleave(k, 0)
+    with (nullcontext() if step_fn or cross_kv_fn
+          else step_graph(model, enc_out, bk, max_len)) as graph:
+        with METRICS.span("decode.cross_kv"):
+            # [L, B, S, d]: beams fold into the token batch, cross-KV stays one
+            # row per window (decoder_step groups each window's k beams onto it)
+            if graph is None:
+                cross_k, cross_v = (cross_kv_fn or precompute_cross_kv)(model, enc_out)
+                tokens = torch.empty((bk, max_len), dtype=torch.long, device=dev)
 
-        def new_cache(ck: torch.Tensor) -> torch.Tensor:  # beside its cross K
-            return torch.zeros((cfg.n_dec_layers, bk, max_len, kv_dim or cfg.dim),
-                               dtype=enc_out.dtype, device=ck.device)
-        self_k, self_v = _each(new_cache, cross_k), _each(new_cache, cross_k)
-    no_speech = torch.zeros((bk,), dtype=torch.float32, device=dev)
-    with METRICS.span("decode.prefill"):
-        for pos in range(n_init - 1):  # prefill: all but the last prompt token
-            logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos)
-            if pos == sot_index:
-                no_speech = torch.softmax(logits.float(), dim=-1)[:, tk.no_speech]
+                def new_cache(ck: torch.Tensor) -> torch.Tensor:  # beside its cross K
+                    return torch.zeros((cfg.n_dec_layers, bk, max_len, kv_dim or cfg.dim),
+                                       dtype=enc_out.dtype, device=ck.device)
+                self_k, self_v = _each(new_cache, cross_k), _each(new_cache, cross_k)
+            else:  # the shape's buffers, at the addresses its CUDA graph reads and writes
+                tokens, self_k, self_v, cross_k, cross_v = graph.buffers
+                tokens = tokens[:, :max_len]
+                precompute_cross_kv(model, enc_out, out=(cross_k, cross_v))
+                self_k.zero_()
+                self_v.zero_()
+            tokens.fill_(eot)
+            tokens[:, :n_init] = initial_tokens.to(dev, torch.long).repeat_interleave(k, 0)
+        step_fn = step_fn or decoder_step
+        METRICS.count("decode_graph_replays", 0)  # a decode that replays no graph reads 0
+        no_speech = torch.zeros((bk,), dtype=torch.float32, device=dev)
+        with METRICS.span("decode.prefill"):
+            for pos in range(n_init - 1):  # prefill: all but the last prompt token
+                logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos)
+                if pos == sot_index:
+                    no_speech = torch.softmax(logits.float(), dim=-1)[:, tk.no_speech]
 
-    if sample:  # sampling chains are independent from the start: all live
-        sum_lp = torch.zeros((b, k), dtype=torch.float32, device=dev)
-    else:  # identical initial beams: only beam 0 may seed candidates
-        sum_lp = torch.where(torch.arange(k, device=dev) == 0, 0.0, -1e9
-                             ).float()[None].repeat(b, 1)
-    n_gen = torch.zeros((b, k), dtype=torch.long, device=dev)
-    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
-    eot_only = torch.full((vocab,), NEG, dtype=torch.float32, device=dev)
-    eot_only[eot] = 0.0
-    rows = torch.arange(b, device=dev)
+        if sample:  # sampling chains are independent from the start: all live
+            sum_lp = torch.zeros((b, k), dtype=torch.float32, device=dev)
+        else:  # identical initial beams: only beam 0 may seed candidates
+            sum_lp = torch.where(torch.arange(k, device=dev) == 0, 0.0, -1e9
+                                 ).float()[None].repeat(b, 1)
+        n_gen = torch.zeros((b, k), dtype=torch.long, device=dev)
+        finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+        eot_only = torch.full((vocab,), NEG, dtype=torch.float32, device=dev)
+        eot_only[eot] = 0.0
+        rows = torch.arange(b, device=dev)
 
-    pos = n_init - 1
-    while pos < max_len - 1:
-        with METRICS.span("decode.sync"):  # the step's one wait for the device
-            done = bool(finished.all())
-        if done:
-            break
-        with METRICS.span("decode.forward"):
-            logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos)
-        with METRICS.span("decode.select"):
-            logits = logits.float().masked_fill(suppress_always[None], NEG)
-            if pos == n_init - 1:
-                logits = logits.masked_fill(suppress_begin[None], NEG)
-            if timestamps:
-                logits = _apply_timestamp_rules(logits, tokens, pos, n_init, ts_begin,
-                                                eot, max_initial_ts_index)
-            logprobs = torch.log_softmax(logits, dim=-1)  # [BK, V]
-            # frozen (finished) beams contribute one candidate: EOT at 0
-            logprobs = torch.where(finished.reshape(bk)[:, None], eot_only[None],
-                                   logprobs)
-            if sample:
-                # independent chains, Gumbel-max draws from softmax(lp / T); no
-                # candidate pooling, no KV reordering
-                u = torch.rand(logprobs.shape, generator=generator, device=dev)
-                gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-                sampled = (logprobs / max(temperature, 1e-3) + gumbel).argmax(dim=-1)
-                chosen_lp = logprobs.gather(1, sampled[:, None])[:, 0]
-                new_tok = sampled.reshape(b, k)
-                was_finished = finished
-                sum_lp = sum_lp + torch.where(was_finished, 0.0, chosen_lp.reshape(b, k))
-            else:
-                cand = (sum_lp.reshape(bk, 1) + logprobs).reshape(b, k * vocab)
-                top_lp, top_idx = _top_k_stable(cand, k)  # [B, K]
-                src_beam = top_idx // vocab
-                new_tok = top_idx % vocab
-                if k > 1:  # greedy (k = 1) needs no beam reordering
-                    flat_src = (rows[:, None] * k + src_beam).reshape(bk)
-                    tokens = tokens.index_select(0, flat_src)
-                    self_k, self_v = (_each(lambda c: c.index_select(1, flat_src.to(c.device)),
-                                            cache) for cache in (self_k, self_v))
-                    no_speech = no_speech.index_select(0, flat_src)
-                    n_gen = n_gen.gather(1, src_beam)
-                    was_finished = finished.gather(1, src_beam)
-                else:
+        pos = n_init - 1
+        while pos < max_len - 1:
+            with METRICS.span("decode.sync"):  # the step's one wait for the device
+                done = bool(finished.all())
+            if done:
+                break
+            with METRICS.span("decode.forward"):
+                logits = step_fn(model, cross_k, cross_v, tokens, self_k, self_v, pos)
+            with METRICS.span("decode.select"):
+                logits = logits.float().masked_fill(suppress_always[None], NEG)
+                if pos == n_init - 1:
+                    logits = logits.masked_fill(suppress_begin[None], NEG)
+                if timestamps:
+                    logits = _apply_timestamp_rules(logits, tokens, pos, n_init, ts_begin,
+                                                    eot, max_initial_ts_index)
+                logprobs = torch.log_softmax(logits, dim=-1)  # [BK, V]
+                # frozen (finished) beams contribute one candidate: EOT at 0
+                logprobs = torch.where(finished.reshape(bk)[:, None], eot_only[None],
+                                       logprobs)
+                if sample:
+                    # independent chains, Gumbel-max draws from softmax(lp / T); no
+                    # candidate pooling, no KV reordering
+                    u = torch.rand(logprobs.shape, generator=generator, device=dev)
+                    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+                    sampled = (logprobs / max(temperature, 1e-3) + gumbel).argmax(dim=-1)
+                    chosen_lp = logprobs.gather(1, sampled[:, None])[:, 0]
+                    new_tok = sampled.reshape(b, k)
                     was_finished = finished
-                sum_lp = top_lp
-            n_gen = n_gen + (~was_finished).long()
-            finished = was_finished | (new_tok == eot)
-            tokens[:, pos + 1] = new_tok.reshape(bk)
-        pos += 1
-    METRICS.count("decode_steps", pos)  # prefill's n_init - 1 and the loop's
+                    sum_lp = sum_lp + torch.where(was_finished, 0.0, chosen_lp.reshape(b, k))
+                else:
+                    cand = (sum_lp.reshape(bk, 1) + logprobs).reshape(b, k * vocab)
+                    top_lp, top_idx = _top_k_stable(cand, k)  # [B, K]
+                    src_beam = top_idx // vocab
+                    new_tok = top_idx % vocab
+                    if k > 1:  # greedy (k = 1) needs no beam reordering
+                        flat_src = (rows[:, None] * k + src_beam).reshape(bk)
+                        reorder_beams(tokens, self_k, self_v, flat_src, pos + 1)
+                        no_speech = no_speech.index_select(0, flat_src)
+                        n_gen = n_gen.gather(1, src_beam)
+                        was_finished = finished.gather(1, src_beam)
+                    else:
+                        was_finished = finished
+                    sum_lp = top_lp
+                n_gen = n_gen + (~was_finished).long()
+                finished = was_finished | (new_tok == eot)
+                tokens[:, pos + 1] = new_tok.reshape(bk)
+            pos += 1
+        METRICS.count("decode_steps", pos)  # prefill's n_init - 1 and the loop's
 
-    avg_lp = sum_lp / n_gen.float().clamp(min=1.0)
-    # beams that closed with EOT outrank ones cut off at max_len
-    rank = torch.where(finished, avg_lp, avg_lp - 1e4)
-    best = rank.argmax(dim=1)  # [B], first maximum on ties
-    best_tokens = tokens.reshape(b, k, max_len)[rows, best]
-    return best_tokens, avg_lp[rows, best], no_speech.reshape(b, k)[:, 0]
+        avg_lp = sum_lp / n_gen.float().clamp(min=1.0)
+        # beams that closed with EOT outrank ones cut off at max_len
+        rank = torch.where(finished, avg_lp, avg_lp - 1e4)
+        best = rank.argmax(dim=1)  # [B], first maximum on ties
+        best_tokens = tokens.reshape(b, k, max_len)[rows, best]
+        return best_tokens, avg_lp[rows, best], no_speech.reshape(b, k)[:, 0]
 
 
 @torch.no_grad()

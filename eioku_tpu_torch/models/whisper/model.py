@@ -17,11 +17,17 @@ attention is plain torch, as the JAX package leaves it outside any kernel;
 so is `cross_attention_alignment`, whose cross-attention weights are its
 output (word timestamps). `decoder_step` writes the new key/value into the
 caches IN PLACE (the JAX version returns updated copies). Any linear may be
-a `QuantLinear` (int8, `layers.quantize_linears`).
+a `QuantLinear` (int8, `layers.quantize_linears`). On the card, a decode's
+steps replay one CUDA graph of the step (`StepGraph`) where the decoder's
+linears are float ones.
 """
 from __future__ import annotations
 
 import math
+import threading
+import weakref
+from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -30,11 +36,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eioku_tpu_torch.models.layers import LayerNorm, Linear, gelu, merge_heads, split_heads
+from eioku_tpu_torch.models.layers import (
+    LayerNorm,
+    Linear,
+    QuantLinear,
+    gelu,
+    merge_heads,
+    split_heads,
+)
 from eioku_tpu_torch.ops.flash_attention import flash_attention
 from eioku_tpu_torch.parallel.collectives import on
 from eioku_tpu_torch.parallel.mesh import Mesh, shard_slice
 from eioku_tpu_torch.parallel.pipeline import pipeline_transformer_layers
+from eioku_tpu_torch.utils.metrics import METRICS
 
 # n_mels, d_model, n_heads, n_enc_layers, n_dec_layers, vocab
 WHISPER_VARIANTS = {
@@ -393,12 +407,29 @@ def whisper_detect_language(model: Whisper, enc_out: torch.Tensor) -> torch.Tens
 
 
 @torch.no_grad()
-def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor):
-    """Cross-attention K/V per layer from encoder states: 2x [L, B, S_enc, d]."""
+def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor, out=None):
+    """Cross-attention K/V per layer from encoder states: 2x [L, B, S_enc, d],
+    written into `out`'s two tensors where it is given."""
     blocks = model.decoder.blocks
-    cross_k = torch.stack([b.cross_attn.key(enc_out) for b in blocks])
-    cross_v = torch.stack([b.cross_attn.value(enc_out) for b in blocks])
+    k_out, v_out = out if out is not None else (None, None)
+    cross_k = torch.stack([b.cross_attn.key(enc_out) for b in blocks], out=k_out)
+    cross_v = torch.stack([b.cross_attn.value(enc_out) for b in blocks], out=v_out)
     return cross_k, cross_v
+
+
+def _cross_and_mlp(block: ResidualAttentionBlock, x: torch.Tensor, cross_k: torch.Tensor,
+                   cross_v: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """A decoder block past its self-attention: the cross-attention and MLP
+    residuals. cross_k/cross_v [B_cross, S_enc, d] may carry fewer rows than
+    x: each group of B/B_cross consecutive rows (beams) attends to one row."""
+    ca = block.cross_attn
+    q = ca.query(block.cross_attn_ln(x))
+    if cross_k.shape[0] == x.shape[0]:
+        cross = _attend(q, cross_k, cross_v, n_heads)
+    else:  # beams share encoder rows
+        cross = _attend_grouped(q, cross_k, cross_v, n_heads)
+    x = x + ca.out(cross)
+    return x + _mlp(block.mlp_ln(x), block)
 
 
 @torch.no_grad()
@@ -407,35 +438,170 @@ def decoder_step(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
                  pos: int) -> torch.Tensor:
     """Run the decoder for the token at position `pos` of tokens [B, max_len].
 
-    Writes this position's keys and values into self_k/self_v [L, B, max_len,
-    d] in place, and attends over positions 0..pos (the JAX version masks the
-    rest with -1e30, whose weights are exactly 0). cross_k/cross_v may carry
-    fewer batch rows than tokens when several rows (beams) share one encoder
-    state: each group of B/B_cross consecutive rows attends to one row.
-    Returns logits [B, vocab] fp32."""
+    Writes this position's keys and values into self_k/self_v [L, B, n, d]
+    (n >= max_len) in place, and attends over the whole cache with the
+    positions past `pos` masked at -1e30 (weights exactly 0, the JAX
+    package's masking). cross_k/cross_v may carry fewer batch rows than
+    tokens when several rows (beams) share one encoder state: each group of
+    B/B_cross consecutive rows attends to one row. Returns logits [B, vocab]
+    fp32.
+
+    Given the buffers of one of the model's `StepGraph`s (`step_graph`, on
+    the card), the step is one replay of the CUDA graph captured over them,
+    and the logits a copy that no later replay overwrites."""
+    graph = _graph_holding(model, tokens, self_k, self_v, cross_k, cross_v)
+    if graph is not None:
+        return graph.step(model, pos)
+    return _decoder_step_static(model, cross_k, cross_v, tokens, self_k, self_v,
+                                torch.tensor([pos], device=tokens.device))
+
+
+@torch.no_grad()
+def _decoder_step_static(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
+                         self_k: torch.Tensor, self_v: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """`decoder_step` at `pos`, a one-element int64 tensor on the tokens'
+    device, with no shape that depends on it: the embeddings are indexed by
+    it and the new keys and values go into the caches with `index_copy_`.
+    No host synchronisation: a CUDA graph captures it."""
     cfg, dec = model.cfg, model.decoder
-    b = tokens.shape[0]
-    x = (dec.token_embedding.weight[tokens[:, pos]][:, None, :]
-         + dec.positional_embedding[pos][None, None]).to(cfg.dtype)
+    tok = tokens.gather(1, pos.expand(tokens.shape[0], 1))  # [B, 1]
+    x = (dec.token_embedding.weight[tok]
+         + dec.positional_embedding.index_select(0, pos)[None]).to(cfg.dtype)
+    live = (torch.arange(self_k.shape[2], device=pos.device) <= pos)[None, None, None]
     for li, block in enumerate(dec.blocks):
         h = block.attn_ln(x)
         at = block.attn
-        self_k[li, :, pos] = at.key(h)[:, 0]
-        self_v[li, :, pos] = at.value(h)[:, 0]
-        attn = _attend(at.query(h), self_k[li, :, :pos + 1],
-                       self_v[li, :, :pos + 1], cfg.n_heads)
-        x = x + at.out(attn)
-        h = block.cross_attn_ln(x)
-        ca = block.cross_attn
-        q = ca.query(h)
-        if cross_k.shape[1] == b:
-            cross = _attend(q, cross_k[li], cross_v[li], cfg.n_heads)
-        else:  # beams share encoder rows
-            cross = _attend_grouped(q, cross_k[li], cross_v[li], cfg.n_heads)
-        x = x + ca.out(cross)
-        x = x + _mlp(block.mlp_ln(x), block)
+        self_k[li].index_copy_(1, pos, at.key(h))
+        self_v[li].index_copy_(1, pos, at.value(h))
+        attn = _attend(at.query(h), self_k[li], self_v[li], cfg.n_heads, mask=live)
+        x = _cross_and_mlp(block, x + at.out(attn), cross_k[li], cross_v[li], cfg.n_heads)
     return _logits(model, dec.ln(x)[:, 0])
 
+
+# -- the decoder step as one CUDA graph -------------------------------------------------
+
+# Decode shapes a model keeps captured, the least recently used dropped first.
+# A batched transcription makes one shape (batch x beam rows); the conditioned
+# decode (beam rows, 131-260 positions at 128 new tokens after its five prompt
+# buckets) makes two, its caches rounded up to 256 and 448 positions; one more
+# for a second batched shape (a prompt, another beam or batch size).
+STEP_GRAPHS = 4
+_STEP_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # model -> its graphs
+_STEP_GRAPHS_LOCK = threading.Lock()
+
+
+class StepGraph:
+    """The static buffers of one decode shape on the card, and the CUDA graph
+    of `_decoder_step_static` over them once the first step has captured it.
+
+    `buffers`: tokens [B, n] int64, the self caches [L, B, n, d] and the
+    cross caches [L, B_cross, S_enc, d], which a decode fills and reorders in
+    place (n: the decode's length rounded up, see `step_graph`); `pos` the
+    device position the graph reads; `weights` the addresses of the
+    decoder's parameters that the graph reads; `in_use` whether a decode
+    holds the buffers."""
+
+    def __init__(self, buffers: tuple, weights: tuple):
+        self.buffers = buffers
+        self.pos = torch.zeros(1, dtype=torch.long, device=buffers[0].device)
+        self.weights = weights
+        self.graph = None
+        self.logits = None
+        self.in_use = False
+
+    def holds(self, tokens, self_k, self_v, cross_k, cross_v) -> bool:
+        """Whether the tensors are this graph's buffers: the caches
+        themselves, the tokens the buffer or its first columns."""
+        buf = self.buffers[0]
+        return (tokens.data_ptr() == buf.data_ptr() and tokens.stride() == buf.stride()
+                and all(t is b for t, b in zip((self_k, self_v, cross_k, cross_v),
+                                               self.buffers[1:])))
+
+    def step(self, model: Whisper, pos: int) -> torch.Tensor:
+        """The decoder step at `pos` on the buffers: logits [B, vocab] fp32."""
+        self.pos.fill_(pos)
+        if self.graph is None:
+            self._capture(model)
+        self.graph.replay()
+        METRICS.count("decode_graph_replays")
+        return self.logits.clone()
+
+    def _capture(self, model: Whisper) -> None:
+        tokens, self_k, self_v, cross_k, cross_v = self.buffers
+        args = (model, cross_k, cross_v, tokens, self_k, self_v, self.pos)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up: this position's writes, which the replay repeats
+            _decoder_step_static(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.logits = _decoder_step_static(*args)
+        self.graph = graph
+        METRICS.count("decode_graph_captures")
+
+
+def _graph_holding(model, *tensors) -> StepGraph | None:
+    """The model's StepGraph whose buffers the tensors are, if any."""
+    if not isinstance(model, Whisper):  # e.g. a tensor-parallel ShardLine
+        return None
+    with _STEP_GRAPHS_LOCK:
+        graphs = _STEP_GRAPHS.get(model, {})
+        return next((g for g in graphs.values() if g.holds(*tensors)), None)
+
+
+@contextmanager
+def step_graph(model: Whisper, enc_out: torch.Tensor, rows: int, max_len: int):
+    """Yields the StepGraph for a decode of `rows` token rows up to `max_len`
+    over enc_out's windows [B_cross, S_enc, d], the decode's alone until the
+    block ends, or None where the step stays eager: off the current card, a
+    decoder with int8 linears, or the shape's graph held by another decode.
+
+    A graph is made at a shape's first use and kept (STEP_GRAPHS a model);
+    one captured over other decoder weights than the model's now is made
+    anew. Its length is max_len rounded up to a power of two, at most the
+    decoder's context, so that decodes of near lengths share a graph: the
+    tokens a decode works on are the buffer's first max_len columns."""
+    if not (enc_out.is_cuda and enc_out.device.index == torch.cuda.current_device()
+            and isinstance(model, Whisper)
+            and not any(isinstance(m, QuantLinear) for m in model.decoder.modules())):
+        yield None
+        return
+    n = min(1 << (max_len - 1).bit_length(),
+            max(max_len, model.decoder.positional_embedding.shape[0]))
+    weights = tuple(p.data_ptr() for p in model.decoder.parameters())
+    key = (rows, n, tuple(enc_out.shape), enc_out.dtype)
+    with _STEP_GRAPHS_LOCK:
+        graphs = _STEP_GRAPHS.setdefault(model, OrderedDict())
+        graph = graphs.pop(key, None)
+        if graph is not None and graph.in_use:
+            graphs[key] = graph
+            graph = None
+        else:
+            if graph is None or graph.weights != weights:
+                idle = [k for k, g in graphs.items() if not g.in_use]
+                for old in idle[:max(len(graphs) + 1 - STEP_GRAPHS, 0)]:
+                    del graphs[old]
+                graph = _new_step_graph(model, enc_out, rows, n, weights)
+            graph.in_use = True
+            graphs[key] = graph
+    try:
+        yield graph
+    finally:
+        if graph is not None:
+            graph.in_use = False
+
+
+def _new_step_graph(model: Whisper, enc_out: torch.Tensor, rows: int, n: int,
+                    weights: tuple) -> StepGraph:
+    (b, s_enc, d), layers = enc_out.shape, model.cfg.n_dec_layers
+
+    def zeros(*shape, dtype=enc_out.dtype):
+        return torch.zeros(shape, dtype=dtype, device=enc_out.device)
+    return StepGraph((zeros(rows, n, dtype=torch.long), zeros(layers, rows, n, d),
+                      zeros(layers, rows, n, d), zeros(layers, b, s_enc, d),
+                      zeros(layers, b, s_enc, d)), weights)
 
 
 # -- tensor and pipeline parallelism ----------------------------------------------------
