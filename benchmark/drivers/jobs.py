@@ -1,6 +1,7 @@
 """Closed-loop transcription jobs on one worker: the traffic's audio files,
 one `InferenceEngine.run_task("transcription", ...)` after another, as the
-port's worker runs them.
+port's worker runs them. This module is Whisper's part of the closed loop
+(`closed_loop.py` runs it; its interface is described there).
 
 Set-up makes the seeded weights on the card and hands them to the port's
 own loader (`load_state_dict` into its `Whisper`, then `_load_model`'s cast
@@ -22,8 +23,8 @@ from __future__ import annotations
 import gc
 import math
 import os
-import random
 import shutil
+import sys
 import time
 import wave
 
@@ -31,11 +32,17 @@ import numpy as np
 
 from benchmark import harness, roofline
 from benchmark import weights as bench_weights
+from benchmark.drivers import closed_loop
+# the loop's own, re-exported: callers that drive this cell read them from here
+from benchmark.drivers.closed_loop import settings as _settings  # noqa: F401
+from benchmark.drivers.closed_loop import window  # noqa: F401
 from benchmark.reference import whisper as ref_whisper
 from benchmark.reference.precision import Arith
 
 SR = 16000
+RATE = "audio_s_per_s"
 CHECKED = ("mel_err", "enc_err", "dec_gap")
+COMPARED = "windows"
 
 
 # -- traffic ------------------------------------------------------------------------
@@ -153,34 +160,10 @@ class Port:
         self.transcribe.load_whisper_checkpoint = self._loader
 
 
-def _sync(device: str) -> None:
-    if device != "cpu":
-        import torch
-        torch.cuda.synchronize()
-
-
-def window(port: Port, jobs, seconds: float) -> tuple[float, list[tuple[float, float]]]:
-    """Whole passes over the jobs, in order, until the first pass that ends
-    after `seconds`: every run does the same work, whatever the host's
-    speed (a window cut at any job boundary holds more or fewer jobs on a
-    faster or slower host, and the jobs' audio per batch differ by up to
-    1.7x). Returns (elapsed s, [(audio s, job wall s)])."""
-    done = []
-    _sync(port.device)
-    t0 = time.perf_counter()
-    while not done or len(done) % len(jobs) or time.perf_counter() - t0 < seconds:
-        path, audio_s = jobs[len(done) % len(jobs)]
-        t = time.perf_counter()
-        port.run(path)
-        done.append((audio_s, time.perf_counter() - t))
-    _sync(port.device)
-    return time.perf_counter() - t0, done
-
-
 # -- the window's batches, for the check ------------------------------------------------------
 
 
-class BatchCapture:
+class BatchCapture(closed_loop.Reservoir):
     """Wrappers on the transcription module's mel, encoder and decoder
     entries that keep, for a seeded reservoir of `keep` batches, the audio
     handed to the mel, the mel, the encoder's states and the decoded rows.
@@ -188,12 +171,8 @@ class BatchCapture:
     copy and no synchronisation on the timed path."""
 
     def __init__(self, seed: int, keep: int):
-        self.rng = random.Random(seed)
-        self.keep = keep
-        self.seen = 0
-        self.kept: list[dict] = []
+        super().__init__(seed, keep)
         self.last: dict = {}
-        self.on = False
         self.steps = 0  # decoder steps taken
         self.batches: list[tuple[int, float]] = []  # (decoder steps, host s) per decode
 
@@ -226,23 +205,25 @@ class BatchCapture:
             if self.on:  # each step ends on a synchronisation: the wall is the device's too
                 self.batches.append((self.steps - n, time.perf_counter() - t))
             if self.on and self.last.get("enc") is e:
-                self._offer(dict(self.last, n_init=int(init.shape[1]), tokens=out[0],
-                                 timestamps=bool(kw.get("timestamps", True))))
+                self.offer(dict(self.last, n_init=int(init.shape[1]), tokens=out[0],
+                                timestamps=bool(kw.get("timestamps", True))))
+                self.last = {}
             return out
         spans.patch(transcribe, "log_mel_spectrogram", mel)
         spans.patch(transcribe, "whisper_encode", enc)
         spans.patch(transcribe, "whisper_decode_windows", dec)
         spans.patch(decoding, "decoder_step", step)
 
-    def _offer(self, rec: dict) -> None:
-        self.seen += 1
-        if len(self.kept) < self.keep:
-            self.kept.append(rec)
-        else:
-            j = self.rng.randrange(self.seen)
-            if j < self.keep:
-                self.kept[j] = rec
-        self.last = {}
+    def describe(self) -> str:
+        return (f"decodes: {len(self.batches)} batches; decoder steps "
+                f"{[n for n, _ in self.batches]}; ms a step "
+                f"{[round(w / max(n, 1) * 1e3, 2) for n, w in self.batches]}")
+
+
+def install_capture(spans: harness.Spans, port: Port, seed: int, traffic: dict) -> BatchCapture:
+    capture = BatchCapture(seed, int(traffic["check_batches"]))
+    capture.install(spans, port.transcribe)
+    return capture
 
 
 # -- the check ------------------------------------------------------------------------------
@@ -324,22 +305,25 @@ def readings(kept: list[dict], ref, n_mels: int, sp, beam: int, control=None) ->
 # -- the traced run ------------------------------------------------------------------------
 
 
-def trace_wrappers(spans: harness.Spans, profile_steps: int, batch: int, dims: dict) -> dict:
+def trace_wrappers(spans: harness.Spans, traffic: dict, model_cfg: dict) -> dict:
     """The traced run's wrappers, around the capture's: synchronised spans of
     the audio front end, the mel, the encoder and the decoder; the decoder's
     step count and the useful operations from shapes (real windows and their
     beam rows); and the profiler's slice, armed by the returned state: it
-    starts at the next batch's mel and stops after `profile_steps` decoder
-    steps."""
+    starts at the next batch's mel and stops after the traffic's
+    `profile_decode_steps` decoder steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from eioku_tpu_torch.ml import audio_io, transcribe
     from eioku_tpu_torch.models.whisper import decoding
 
+    dims, batch = model_cfg["config"], int(model_cfg["job"]["batch_size"])
+    profile_steps = int(traffic["profile_decode_steps"])
     d, vocab = dims["d_model"], dims["vocab_size"]
     st = {"real": 0, "rows": 1, "in_decode": False, "armed": False, "prof": None,
-          "done": None, "steps": 0, "t0": 0.0, "slice_s": 0.0}
+          "done": None, "steps": 0, "t0": 0.0, "slice_s": 0.0,
+          "what": f"one batch's mel and encoder, its first {profile_steps} decoder steps"}
     c = spans.counters
     for attr in ("find_audio_for_video", "load_audio", "split_windows"):
         spans.wrap(audio_io, attr, "audio_prep")
@@ -410,134 +394,30 @@ def _beam(model_cfg: dict) -> int:
     return int(model_cfg["job"].get("beam_size", 5))
 
 
-def _settings(cell: harness.Cell, rehearse: bool) -> tuple[dict, dict]:
-    model_cfg, traffic = dict(cell.config), dict(cell.traffic)
-    if rehearse:
-        small = model_cfg["rehearse"]
-        model_cfg.update(small)
-        model_cfg["job"] = {**cell.config["job"], **small.get("job", {})}
-        traffic.update(traffic["rehearse"])
-    return model_cfg, traffic
+def check(kept: list[dict], model_cfg: dict, seed: int, device, control: bool = False) -> dict:
+    """`readings` of the kept batches against the float32 reference on the
+    seed's weights (with `control`, the reference in float8 as well)."""
+    dims = model_cfg["config"]
+    ref = reference_from_seed(dims, seed, device)
+    ctl = ref_whisper.Whisper(ref.p, dims["encoder_attention_heads"], Arith("fp8")) \
+        if control else None
+    return readings(kept, ref, dims["num_mel_bins"], ref_whisper.Specials(dims["vocab_size"]),
+                    _beam(model_cfg), control=ctl)
+
+
+def layer_readings(model_cfg: dict, done: list[tuple[float, float]]) -> dict:
+    return {"audio_s": sum(a for a, _ in done), "dims": model_cfg["config"],
+            "batch": int(model_cfg["job"]["batch_size"])}
 
 
 def run(cell: harness.Cell, seed: int, seconds: float, trace: bool,
         rehearse: bool) -> tuple[dict, dict]:
     """One run of a transcription cell: (result, checks)."""
-    import torch
-
-    model_cfg, traffic = _settings(cell, rehearse)
-    device = "cpu" if rehearse else "cuda"
-    dims = model_cfg["config"]
-    batch = int(model_cfg["job"]["batch_size"])
-    folder = os.path.join(harness.CACHE_DIR, cell.name)
-    port = Port(model_cfg, device, os.path.join(folder, "models"))
-    harness.log(f"set-up: the port imported at {harness.process_age_s():.2f} s; torch threads "
-                f"{torch.get_num_threads()}, CPUs {len(os.sched_getaffinity(0))}")
-    warm, jobs = write_jobs(os.path.join(folder, "audio"), seed, traffic)
-    harness.log(f"set-up: audio written at {harness.process_age_s():.2f} s")
-    port.give(seed)
-    harness.log(f"set-up: weights made at {harness.process_age_s():.2f} s")
-    spans = harness.Spans(sync=trace and device != "cpu")
-    capture = BatchCapture(seed, int(traffic["check_batches"]))
-    capture.install(spans, port.transcribe)
-    st = trace_wrappers(spans, int(traffic["profile_decode_steps"]), batch, dims) if trace else None
-    port.run(warm)  # loads the weights; every shape the window takes, built and warm
-    harness.log(f"set-up: loaded and warmed up at {harness.process_age_s():.2f} s")
-    spans.records.clear()
-    spans.counters.clear()
-    if device != "cpu":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    setup_s = harness.process_age_s()
-    harness.log(f"window opens: {harness.host_line()}")
-    host0 = harness.host_counters()
-    capture.on = True
-    elapsed, done = window(port, jobs, seconds)
-    capture.on = False
-    harness.log(f"window closed: {harness.host_line()}; over the window: "
-                f"{harness.host_delta(host0, harness.host_counters())}")
-    harness.log(f"decodes: {len(capture.batches)} batches; decoder steps "
-                f"{[n for n, _ in capture.batches]}; ms a step "
-                f"{[round(w / max(n, 1) * 1e3, 2) for n, w in capture.batches]}")
-    peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
-    window_spans = {k: list(v) for k, v in spans.records.items()}
-    window_counters = dict(spans.counters)
-    audio_s = sum(a for a, _ in done)
-    harness.log(f"window: {len(done)} jobs, {audio_s:.1f} s of audio in {elapsed:.3f} s (asked "
-                f"{seconds} s, closed at the end of the first pass over the jobs after it); "
-                f"job walls {[round(w, 3) for _, w in done]}")
-    profile = None
-    if st is not None and device != "cpu":
-        st["armed"] = True
-        port.run(warm)  # the profiler's slice, after the window
-        if st["done"] is not None:
-            profile = harness.profile_summary(st["done"], st["slice_s"])
-            harness.log(f"profiler slice (one batch's mel and encoder, its first "
-                        f"{traffic['profile_decode_steps']} decoder steps): "
-                        f"{st['slice_s']:.4f} s, {profile['launches']} kernels, device busy "
-                        f"{profile['busy_s']:.4f} s")
-    spans.restore()
-    kept = capture.kept
-    port.close()
-    del port, capture
-    gc.collect()
-    t = time.perf_counter()
-    r = readings(kept, reference_from_seed(dims, seed, device), dims["num_mel_bins"],
-                 ref_whisper.Specials(dims["vocab_size"]), _beam(model_cfg))
-    harness.log(f"check: {len(kept)} batches drawn from the seed, {r['windows']} real windows, "
-                f"{r['tokens']} emitted tokens; the reference took {time.perf_counter() - t:.1f} s")
-    limits = cell.config["limits"]
-    checks = {k: (r[k], limits[k]) for k in CHECKED}
-    checks["unchecked"] = (float(r["windows"] == 0), 0.0)  # some window was compared
-    if trace:
-        spans.records.clear()
-        spans.records.update(window_spans)
-        metrics = harness.read_layers(cell, {
-            "spans": spans, "counters": window_counters, "profile": profile,
-            "window_s": elapsed, "jobs": len(done), "audio_s": audio_s, "dims": dims,
-            "batch": batch, "device": device})
-    else:
-        metrics = {"audio_s_per_s": audio_s / elapsed, "setup_s": setup_s}
-    if rehearse:
-        device = {"platform": "cpu", "kind": "rehearsal", "count": 0, "memory_peak_bytes": 0}
-    else:
-        device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": cell.chips,
-                  "memory_peak_bytes": int(peak)}
-    return harness.result_line(cell, checks, len(done), 0, metrics, device, profile), checks
+    return closed_loop.run(sys.modules[__name__], cell, seed, seconds, trace, rehearse)
 
 
 def calibrate(cell: harness.Cell, seeds: list[int], seconds: float) -> list[dict]:
     """The program's readings and the control's (the reference in float8 in
     its place, on the same audio and tokens) on each seed, with one set-up:
     per seed the weights are made and loaded and the window runs `seconds`."""
-    import torch
-
-    model_cfg, traffic = _settings(cell, rehearse=False)
-    dims = model_cfg["config"]
-    folder = os.path.join(harness.CACHE_DIR, cell.name)
-    port = Port(model_cfg, "cuda", os.path.join(folder, "models"))
-    sp = ref_whisper.Specials(dims["vocab_size"])
-    rows = []
-    for seed in seeds:
-        _, jobs = write_jobs(os.path.join(folder, "audio"), seed, traffic)
-        port.give(seed)
-        spans = harness.Spans()
-        capture = BatchCapture(seed, int(traffic["check_batches"]))
-        capture.install(spans, port.transcribe)
-        capture.on = True
-        elapsed, done = window(port, jobs, seconds)
-        spans.restore()
-        port.forget()
-        ref = reference_from_seed(dims, seed, "cuda")
-        control = ref_whisper.Whisper(ref.p, dims["encoder_attention_heads"], Arith("fp8"))
-        r = readings(capture.kept, ref, dims["num_mel_bins"], sp, _beam(model_cfg),
-                     control=control)
-        del ref, control, capture
-        gc.collect()
-        torch.cuda.empty_cache()
-        row = {"seed": seed, "job_walls": [round(w, 3) for _, w in done], "elapsed_s": elapsed,
-               **{k: r[k] for k in CHECKED + ("windows", "tokens", "control")}}
-        harness.log(f"calibration {row}")
-        rows.append(row)
-    port.close()
-    return rows
+    return closed_loop.calibrate(sys.modules[__name__], cell, seeds, seconds)

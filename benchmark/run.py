@@ -9,38 +9,50 @@ names the generator that runs it) and each per-layer metric's reader under
 benchmark/metrics/; sets up, warms up, measures for --seconds, checks the
 outputs against the plain reference and prints one JSON line last on
 standard output. Without CUDA, or with fewer cards than the cell asks for,
-it exits nonzero and prints no result.
+it exits nonzero and prints no result. A traffic file's `driver` is the
+name of a module under benchmark/drivers/, found by that name alone.
 
 Builder's modes, not run by the checks:
   --rehearse            the cell's control flow at tiny sizes on the CPU
                         (its numbers are not the device's);
   --calibrate S1,S2,..  the check's numbers of the program and of the
                         control (the reference in float8) on each seed;
-  --sweep R1,R2,..      search cells: open-loop windows at each rate;
+  --sweep R1,R2,..      open-loop windows at each rate (drivers that sweep);
   --add-cells FILE      also the cells of a fragment of BENCHMARK.json
                         (benchmark/pending/: cells not in the benchmark).
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
+import re
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from benchmark import harness  # noqa: E402
 
+DRIVERS = os.path.join(harness.BENCH_DIR, "drivers")
+
 
 def _driver(cell: harness.Cell):
+    """The module benchmark/drivers/<driver>.py that the cell's traffic
+    names. A driver provides `run(cell, seed, seconds, trace, rehearse)`,
+    and may provide `calibrate(cell, seeds, seconds)` and `sweep(cell,
+    seed, seconds, rates)`."""
     name = cell.traffic["driver"]
-    if name == "jobs":
-        from benchmark.drivers import jobs
-        return jobs
-    if name == "http_search":
-        from benchmark.drivers import http_search
-        return http_search
-    raise LookupError(f"traffic of {cell.name!r} names an unknown driver {name!r}")
+    if not isinstance(name, str) or not re.fullmatch(r"[a-z0-9_]+", name) or \
+            not os.path.isfile(os.path.join(DRIVERS, name + ".py")):
+        present = sorted(f[:-3] for f in os.listdir(DRIVERS)
+                         if f.endswith(".py") and f != "__init__.py")
+        raise LookupError(f"traffic of {cell.name!r} names an unknown driver {name!r}; "
+                          f"modules under benchmark/drivers/: {present}")
+    driver = importlib.import_module(f"benchmark.drivers.{name}")
+    if not callable(getattr(driver, "run", None)):
+        raise LookupError(f"benchmark/drivers/{name}.py, named by {cell.name!r}, has no run()")
+    return driver
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -60,6 +72,11 @@ def main(argv: list[str] | None = None) -> int:
     except (LookupError, OSError) as e:
         harness.log(f"cannot run {args.workload!r}: {e}")
         return 2
+    for mode in ("calibrate", "sweep"):
+        if getattr(args, mode) and not hasattr(driver, mode):
+            harness.log(f"cannot --{mode} {args.workload!r}: its driver "
+                        f"{cell.traffic['driver']!r} has no {mode}()")
+            return 2
     harness.set_cache_env()
     if not args.rehearse:
         harness.require_cards(cell.chips)

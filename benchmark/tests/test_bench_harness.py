@@ -26,8 +26,9 @@ SPEC = harness.load_spec(PENDING)
 def test_cell_files_are_found_by_name(name):
     cell = harness.Cell(SPEC, name)
     assert os.path.isfile(os.path.join(harness.ROOT, cell.config_entry["file"]))
-    assert cell.traffic["driver"] in ("jobs", "http_search")
-    assert run._driver(cell) in (jobs, http_search)
+    driver = cell.traffic["driver"]
+    assert os.path.isfile(os.path.join(harness.BENCH_DIR, "drivers", driver + ".py"))
+    assert run._driver(cell).__name__ == f"benchmark.drivers.{driver}"
     names = [m["name"] for m in cell.end_to_end]
     assert "setup_s" in names and len(names) >= 2
     assert cell.per_layer
