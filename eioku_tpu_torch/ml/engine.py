@@ -7,7 +7,9 @@ object_detection, face_detection, place_classification, ocr,
 visual_analysis (scenes, objects, faces, places, OCR), transcription and
 speaker_diarization. semantic_indexing raises ModelNotAvailable, which the
 task handler records as a clean task failure: the handler runs it on its
-index without the engine, as in the JAX package.
+index without the engine, as in the JAX package. summarization (chapters
+of a transcript, `ml/summarize.py`) is the port's own, with no counterpart
+in the JAX engine.
 
 Results are lists of {"payload": dict, "span_start_ms": int,
 "span_end_ms": int}; visual_analysis returns {sub_task_type: results}.
@@ -49,6 +51,7 @@ _TASK_TYPES = (
     "scene_detection", "metadata_extraction", "object_detection",
     "face_detection", "transcription", "ocr", "place_classification",
     "semantic_indexing", "visual_analysis", "speaker_diarization",
+    "summarization",
 )
 
 
@@ -69,6 +72,7 @@ class InferenceEngine:
             "transcription": self._transcription,
             "ocr": self._ocr,
             "speaker_diarization": self._speaker_diarization,
+            "summarization": self._summarization,
         }
         self._dispatch: dict[str, Callable[[str, dict], Any]] = {
             t: ported.get(t, self._not_ported(t)) for t in _TASK_TYPES}
@@ -151,3 +155,8 @@ class InferenceEngine:
         return run_diarization(video_path, config,
                                model_cache_dir=self.model_cache_dir,
                                device=self.device)
+
+    def _summarization(self, video_path: str, config: dict) -> list[dict]:
+        from eioku_tpu_torch.ml.summarize import run_summarization
+        return run_summarization(video_path, config, model_cache_dir=self.model_cache_dir,
+                                 device=self.device)
