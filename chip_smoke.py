@@ -9,8 +9,8 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    together) and prints the build time and ptxas' resource report; counts
    the HGMMA (wgmma) and UTMALDG (TMA load) instructions in K3's library
    (cuobjdump --dump-sass) and fails if either is 0, or if ptxas reports a
-   spill in K3's bf16 and f16 kernels or in K2's two kernels (mask and
-   scan);
+   spill in K3's bf16 and f16 kernels, in K2's two kernels (mask and
+   scan) or in K4's;
 2. K1 scene-diff kernel against its plain PyTorch version on the card, at the
    main path's chain shape [257, 46080] and a ragged one (odd N, D not a
    multiple of 4): max abs error <= 1e-6, then kernel / plain / library time
@@ -36,6 +36,16 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    graph (device time without the host's), each with the kernel's share of
    its bound and its ratio to the library time; the f16 route likewise at
    both shapes, beside scaled_dot_product_attention in f16;
+3c. K4, the decode attention kernel (csrc/decode_attention.cu), against its
+   plain version at large-v3's batched decode (40 rows: self over 256
+   positions at pos 0, 3, 63, 127, 255; cross over 8 windows x 1500 frames,
+   5 beams a window) and the conditioned decode's (5 rows, self over 448,
+   cross over one window), in bf16, f16 and fp32: bf16 within 1 ulp plus
+   2^-8 * sum_j p_j |v_j|, f16 1 ulp plus 2^-11 * sum_j p_j |v_j|, fp32 2e-5;
+   the cache past pos poisoned with NaN gives the same output; one graph
+   replayed at three positions equals each eager call. Then kernel / plain /
+   bound / scaled_dot_product_attention times at the cell's cross and self
+   (pos 127) shapes, calls and graph;
 4. the visual pass: InferenceEngine(device="cuda").run_task("visual_analysis")
    with all four sub-tasks at their defaults -- scenes, YOLOv8n objects,
    yolov8n-face faces (threshold FACE_CONF, embeddings on: ArcFace
@@ -324,6 +334,16 @@ K3_CASES = (  # shape, dtype name, causal, lengths
     ((2, 2, 77, 32), "float32", False, (0, 77)),
     ((2, 2, 130, 64), "bfloat16", True, (0, 100)),
 )
+# K4, the decode attention kernel, at large-v3's batched decode: 8 windows x 5
+# beams (40 query rows) of 20 heads x 64; the self cache of 256 positions
+# (timed at position 127), the encoder's 1500 frames a window
+K4_HEADS, K4_WIDTH, K4_ROWS, K4_WINDOWS, K4_CACHE, K4_POS = 20, 1280, 40, 8, 256, 127
+K4_CASES = (  # query rows, K/V rows, frames, positions (None: all frames live)
+    (K4_ROWS, K4_ROWS, K4_CACHE, (0, 3, 63, 127, 255)),  # self, the cell's decode
+    (K4_ROWS, K4_WINDOWS, 1500, None),  # cross, 5 beams a window
+    (5, 5, 448, (130, 447)),  # the conditioned decode's self
+    (5, 1, 1500, None),  # and its cross
+)
 AUDIO_SECONDS, SILENT_WINDOW = 150, 2  # five 30 s windows, window 2 silent
 SAMPLES_PER_WINDOW = 30 * 16000
 WHISPER_CONFIG = {"model": "large-v3", "random_full_size": True,
@@ -497,7 +517,8 @@ def phase_build() -> dict:
         _cuda.load(name)
     for name, label, entries in (
             ("flash_attention", "K3's bf16 and f16 kernels", ("flash_hopper",)),
-            ("nms", "K2's kernels", ("nms_mask_kernel", "nms_scan_kernel"))):
+            ("nms", "K2's kernels", ("nms_mask_kernel", "nms_scan_kernel")),
+            ("decode_attention", "K4's kernels", ("decode_attention_kernel",))):
         if name not in built:
             log(f"{label} were built before this run: their ptxas report is not checked")
             continue
@@ -799,6 +820,141 @@ def phase_k3_minilm(dev, dtype) -> dict:
             f"{ms:.5f} ms, scaled_dot_product_attention (key mask) {library_ms:.5f} ms, "
             f"bound {bound_ms:.5f} ms ({ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); "
             f"{bound_ms / ms:.1%} of the bound, {ms / library_ms:.3f}x the library time")
+    return out
+
+
+def k4_error(got, want, weight) -> float:
+    """fp32: max abs error less 2e-5. bf16: the largest (error - 1 ulp -
+    2^-8 * sum_j p_j |v_j|), f16: the same with 1 f16 ulp and 2^-11; <= 0
+    within tolerance (csrc/decode_attention.cu: the output's own rounding,
+    and a p_j that rounds to its neighbour where its score sums in another
+    order)."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return float((diff - 2e-5).max())
+    top = got.float().abs().maximum(want.float().abs())
+    if got.dtype == torch.float16:
+        return float((diff - f16_ulp(top) - 2.0 ** -11 * weight).max())
+    return float((diff - bf16_ulp(top) - 2.0 ** -8 * weight).max())
+
+
+def phase_k4(dev) -> dict:
+    """K4, the decode attention kernel, against its plain version at the
+    batched decode's and the conditioned decode's shapes in bf16, f16 and
+    fp32 (K4_CASES), a cache tail poisoned with NaN past the position, one
+    graph replayed at several positions; then times at the cell's shapes."""
+    import torch
+
+    from eioku_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(rows, kv_rows, frames, dtype):
+        return (torch.randn((rows, 1, K4_WIDTH), generator=gen, device=dev).to(dtype),
+                torch.randn((kv_rows, frames, K4_WIDTH), generator=gen, device=dev).to(dtype),
+                torch.randn((kv_rows, frames, K4_WIDTH), generator=gen, device=dev).to(dtype))
+
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for rows, kv_rows, frames, positions in K4_CASES:
+            q, k, v = inputs(rows, kv_rows, frames, dtype)
+            for p in positions or (None,):
+                pos = None if p is None else torch.tensor([p], device=dev)
+                got = decode_attention(q, k, v, K4_HEADS, pos=pos)
+                want = decode_attention_plain(q, k, v, K4_HEADS, pos=pos)
+                weight = decode_attention_plain(q.float(), k.float(), v.float().abs(),
+                                                K4_HEADS, pos=pos)
+                err = k4_error(got, want, weight)
+                if not (bool(torch.isfinite(got).all()) and err <= 0):
+                    raise AssertionError(f"K4 {dtype} rows {rows} over {kv_rows} x {frames} "
+                                         f"pos {p}: past the tolerance by {err}")
+                key = str(dtype).removeprefix("torch.")
+                worst[key] = max(worst.get(key, -1.0), err)
+                if pos is not None:  # the tail past pos is never read
+                    k2, v2 = k.clone(), v.clone()
+                    k2[:, p + 1:], v2[:, p + 1:] = float("nan"), float("nan")
+                    if not torch.equal(decode_attention(q, k2, v2, K4_HEADS, pos=pos), got):
+                        raise AssertionError(f"K4 read past position {p}")
+    log(f"K4 against its plain version: largest excess over the tolerance {worst}")
+    q, k, v = inputs(K4_ROWS, K4_ROWS, K4_CACHE, torch.bfloat16)
+    pos = torch.zeros(1, dtype=torch.long, device=dev)
+    eager = {p: decode_attention(q, k, v, K4_HEADS, pos=torch.tensor([p], device=dev))
+             for p in (0, 100, 255)}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention(q, k, v, K4_HEADS, pos=pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, K4_HEADS, pos=pos)
+    for p in (255, 0, 100):
+        pos.fill_(p)
+        graph.replay()
+        if not torch.equal(out, eager[p]):
+            raise AssertionError(f"K4's replay at position {p} differs from its eager call")
+    return {"excess_over_tolerance": worst, **k4_times(dev)}
+
+
+def k4_times(dev) -> dict:
+    """K4 at the cell's shapes, bf16: cross-attention (8 windows x 1500
+    frames, 5 beams a window) and self-attention (40 rows at position 127 of
+    256), back-to-back calls and replayed from a CUDA graph, over three
+    input sets cycled past the L2; the plain version's calls; and
+    scaled_dot_product_attention as the library's yardstick (the beams as a
+    window's 5 query positions; self over the live prefix), which the port
+    never calls. The bound: K and V read once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from eioku_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    hd = K4_WIDTH // K4_HEADS
+    live = K4_POS + 1
+    out = {}
+    for name, kv_rows, frames, pos in (
+            ("cross", K4_WINDOWS, 1500, None),
+            ("self", K4_ROWS, K4_CACHE, torch.tensor([K4_POS], device=dev))):
+        sets = [tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                      for shape in ((K4_ROWS, 1, K4_WIDTH), (kv_rows, frames, K4_WIDTH),
+                                    (kv_rows, frames, K4_WIDTH)))
+                for _ in range(3)]
+        group = K4_ROWS // kv_rows
+        read = frames if pos is None else live
+
+        def kernel(q, k, v, pos=pos):
+            return decode_attention(q, k, v, K4_HEADS, pos=pos)
+
+        def plain(q, k, v, pos=pos):
+            return decode_attention_plain(q, k, v, K4_HEADS, pos=pos)
+
+        def library(q, k, v, read=read, group=group, kv_rows=kv_rows):
+            qh = q.view(kv_rows, group, K4_HEADS, hd).transpose(1, 2)
+            kh = k[:, :read].view(kv_rows, read, K4_HEADS, hd).transpose(1, 2)
+            vh = v[:, :read].view(kv_rows, read, K4_HEADS, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(qh, kh, vh, scale=hd ** -0.5)
+        nbytes = 2 * kv_rows * read * K4_WIDTH * 2  # K and V to the live frames, once
+        r = {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+             "plain_ms": cuda_ms(plain, iters=10, warmup=2, args=sets)}
+        calls = lambda fn, args: cuda_ms(fn, iters=60, args=args)  # noqa: E731
+        for how, timer in (("calls", calls), ("graph", cuda_graph_ms)):
+            ms, library_ms = timer(kernel, args=sets), timer(library, args=sets)
+            r.update({f"{how}_ms": ms, f"{how}_library_ms": library_ms})
+            log(f"K4 {name} {K4_ROWS} rows over {kv_rows} x {read} frames bf16 ({how}): "
+                f"kernel {ms:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+                f"scaled_dot_product_attention {library_ms:.5f} ms, bound "
+                f"{r['bound_ms']:.5f} ms ({nbytes / 1e6:.1f} MB); "
+                f"{r['bound_ms'] / ms:.1%} of the bound")
+        out[name] = r
     return out
 
 
@@ -4492,6 +4648,7 @@ def main() -> int:
     k1 = timed("2 K1", phase_k1, dev)
     k2 = timed("3 K2", phase_k2, dev)
     k3 = timed("3b K3", phase_k3, dev)
+    k4 = timed("3c K4", phase_k4, dev)
     timed("4 fp32 references", phase_logits_reference, dev)
     with tempfile.TemporaryDirectory(prefix="eioku_smoke_") as workdir:
         sl = timed("4 visual", phase_slice, dev, workdir)
@@ -4546,6 +4703,10 @@ def main() -> int:
          "launches_training": tr13["k3_launches"],
          "tp_heads": md["k3_tp_heads"],
          **k3},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "eioku_tpu_torch/csrc/decode_attention.cu",
+         "replaces": None,  # the JAX package leaves decoder attention outside any kernel
+         "launches": tr["launches"]["decode_attention"], **k4},
     ]
     kernels[1]["launches_data_parallel_two_replicas"] = \
         det["data_parallel"]["two_replicas"]["k2_launches"]

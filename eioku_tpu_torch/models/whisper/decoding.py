@@ -229,6 +229,7 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
             tokens[:, :n_init] = initial_tokens.to(dev, torch.long).repeat_interleave(k, 0)
         step_fn = step_fn or decoder_step
         METRICS.count("decode_graph_replays", 0)  # a decode that replays no graph reads 0
+        METRICS.count("decode_attn_kernel_steps", 0)  # nor one whose attention stays plain
         no_speech = torch.zeros((bk,), dtype=torch.float32, device=dev)
         with METRICS.span("decode.prefill"):
             for pos in range(n_init - 1):  # prefill: all but the last prompt token

@@ -12,14 +12,20 @@ one (weights.py). Layouts at the public functions are the JAX package's: mel
 [B, n_mels, 3000], encoder states [B, 1500, d], KV caches [L, B, S, d].
 
 The encoder's self-attention goes through ops/flash_attention.py (the
-hand-written kernel K3 on the card, its plain version on the CPU). Decoder
-attention is plain torch, as the JAX package leaves it outside any kernel;
-so is `cross_attention_alignment`, whose cross-attention weights are its
-output (word timestamps). `decoder_step` writes the new key/value into the
-caches IN PLACE (the JAX version returns updated copies). Any linear may be
-a `QuantLinear` (int8, `layers.quantize_linears`). On the card, a decode's
-steps replay one CUDA graph of the step (`StepGraph`) where the decoder's
-linears are float ones.
+hand-written kernel K3 on the card, its plain version on the CPU). The
+decoder step's one-position self- and cross-attention go through
+ops/decode_attention.py (a hand-written kernel on the card that reads the
+caches in place and the self cache only up to the live position; on the CPU
+its plain version, `_attend`'s operations with a window's beams grouped
+onto its K/V). The decoder's other attention is plain torch, as the JAX
+package leaves it outside any kernel: the full-sequence and
+tensor-parallel decoders (the latter's cross-attention through the plain
+version), and `cross_attention_alignment`, whose cross-attention weights
+are its output (word timestamps). `decoder_step` writes the new key/value
+into the caches IN PLACE (the JAX version returns updated copies). Any
+linear may be a `QuantLinear` (int8, `layers.quantize_linears`). On the
+card, a decode's steps replay one CUDA graph of the step (`StepGraph`)
+where the decoder's linears are float ones.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from eioku_tpu_torch.models.layers import (
     merge_heads,
     split_heads,
 )
+from eioku_tpu_torch.ops import decode_attention as decode_attn
 from eioku_tpu_torch.ops.flash_attention import flash_attention
 from eioku_tpu_torch.parallel.collectives import on
 from eioku_tpu_torch.parallel.mesh import Mesh, shard_slice
@@ -225,24 +232,6 @@ def _attend(q, k, v, n_heads: int, mask=None) -> torch.Tensor:
     return merge_heads(w @ vh)
 
 
-def _attend_grouped(q, k, v, n_heads: int) -> torch.Tensor:
-    """Cross-attention where G consecutive query rows share each key/value
-    row: q [B*G, Sq, d]; k/v [B, Sk, d] -> [B*G, Sq, d]. Beams of one window
-    attend to one copy of its encoder K/V."""
-    b = k.shape[0]
-    g = q.shape[0] // b
-    hd = q.shape[-1] // n_heads
-    scale = hd ** -0.25
-    qh = split_heads(q, n_heads) * scale  # [BG, H, Sq, hd]
-    kh = split_heads(k, n_heads) * scale  # [B, H, Sk, hd]
-    vh = split_heads(v, n_heads)
-    qh = qh.reshape(b, g, n_heads, q.shape[1], hd)
-    scores = torch.einsum("bghqd,bhkd->bghqk", qh.float(), kh.float())
-    w = torch.softmax(scores, dim=-1).to(vh.dtype)
-    out = torch.einsum("bghqk,bhkd->bghqd", w, vh)
-    return merge_heads(out.reshape(q.shape[0], n_heads, q.shape[1], hd))
-
-
 def _self_attn(x, attn: MultiHeadAttention, n_heads: int, mask=None):
     q, k, v = attn.query(x), attn.key(x), attn.value(x)
     return attn.out(_attend(q, k, v, n_heads, mask))
@@ -419,16 +408,13 @@ def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor, out=None):
 
 def _cross_and_mlp(block: ResidualAttentionBlock, x: torch.Tensor, cross_k: torch.Tensor,
                    cross_v: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """A decoder block past its self-attention: the cross-attention and MLP
-    residuals. cross_k/cross_v [B_cross, S_enc, d] may carry fewer rows than
-    x: each group of B/B_cross consecutive rows (beams) attends to one row."""
+    """A decoder block past its self-attention at one position: the
+    cross-attention and MLP residuals. cross_k/cross_v [B_cross, S_enc, d]
+    may carry fewer rows than x: each group of B/B_cross consecutive rows
+    (beams) attends to one row, whose bytes the kernel reads once for all."""
     ca = block.cross_attn
-    q = ca.query(block.cross_attn_ln(x))
-    if cross_k.shape[0] == x.shape[0]:
-        cross = _attend(q, cross_k, cross_v, n_heads)
-    else:  # beams share encoder rows
-        cross = _attend_grouped(q, cross_k, cross_v, n_heads)
-    x = x + ca.out(cross)
+    x = x + ca.out(decode_attn.decode_attention(ca.query(block.cross_attn_ln(x)), cross_k,
+                                                cross_v, n_heads))
     return x + _mlp(block.mlp_ln(x), block)
 
 
@@ -439,12 +425,13 @@ def decoder_step(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
     """Run the decoder for the token at position `pos` of tokens [B, max_len].
 
     Writes this position's keys and values into self_k/self_v [L, B, n, d]
-    (n >= max_len) in place, and attends over the whole cache with the
-    positions past `pos` masked at -1e30 (weights exactly 0, the JAX
-    package's masking). cross_k/cross_v may carry fewer batch rows than
-    tokens when several rows (beams) share one encoder state: each group of
-    B/B_cross consecutive rows attends to one row. Returns logits [B, vocab]
-    fp32.
+    (n >= max_len) in place, and attends over positions 0..pos of the cache
+    (the kernel reads no further; the CPU's plain version masks the rest at
+    -1e30, weights exactly 0, the JAX package's masking). cross_k/cross_v
+    may carry fewer batch rows than tokens when several rows (beams) share
+    one encoder state: each group of B/B_cross consecutive rows attends to
+    one row. Returns logits [B, vocab] fp32. Counts
+    `decode_attn_kernel_steps` where the step launched the attention kernel.
 
     Given the buffers of one of the model's `StepGraph`s (`step_graph`, on
     the card), the step is one replay of the CUDA graph captured over them,
@@ -452,8 +439,12 @@ def decoder_step(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
     graph = _graph_holding(model, tokens, self_k, self_v, cross_k, cross_v)
     if graph is not None:
         return graph.step(model, pos)
-    return _decoder_step_static(model, cross_k, cross_v, tokens, self_k, self_v,
-                                torch.tensor([pos], device=tokens.device))
+    launched = decode_attn.launches()
+    logits = _decoder_step_static(model, cross_k, cross_v, tokens, self_k, self_v,
+                                  torch.tensor([pos], device=tokens.device))
+    if decode_attn.launches() > launched:
+        METRICS.count("decode_attn_kernel_steps")
+    return logits
 
 
 @torch.no_grad()
@@ -462,19 +453,20 @@ def _decoder_step_static(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
                          pos: torch.Tensor) -> torch.Tensor:
     """`decoder_step` at `pos`, a one-element int64 tensor on the tokens'
     device, with no shape that depends on it: the embeddings are indexed by
-    it and the new keys and values go into the caches with `index_copy_`.
-    No host synchronisation: a CUDA graph captures it."""
+    it, the new keys and values go into the caches with `index_copy_`, and
+    the self-attention reads `pos` on the device. No host synchronisation: a
+    CUDA graph captures it."""
     cfg, dec = model.cfg, model.decoder
     tok = tokens.gather(1, pos.expand(tokens.shape[0], 1))  # [B, 1]
     x = (dec.token_embedding.weight[tok]
          + dec.positional_embedding.index_select(0, pos)[None]).to(cfg.dtype)
-    live = (torch.arange(self_k.shape[2], device=pos.device) <= pos)[None, None, None]
     for li, block in enumerate(dec.blocks):
         h = block.attn_ln(x)
         at = block.attn
         self_k[li].index_copy_(1, pos, at.key(h))
         self_v[li].index_copy_(1, pos, at.value(h))
-        attn = _attend(at.query(h), self_k[li], self_v[li], cfg.n_heads, mask=live)
+        attn = decode_attn.decode_attention(at.query(h), self_k[li], self_v[li], cfg.n_heads,
+                                            pos=pos)
         x = _cross_and_mlp(block, x + at.out(attn), cross_k[li], cross_v[li], cfg.n_heads)
     return _logits(model, dec.ln(x)[:, 0])
 
@@ -508,6 +500,7 @@ class StepGraph:
         self.weights = weights
         self.graph = None
         self.logits = None
+        self.attn_kernel = False  # whether the captured step launches the attention kernel
         self.in_use = False
 
     def holds(self, tokens, self_k, self_v, cross_k, cross_v) -> bool:
@@ -525,6 +518,8 @@ class StepGraph:
             self._capture(model)
         self.graph.replay()
         METRICS.count("decode_graph_replays")
+        if self.attn_kernel:
+            METRICS.count("decode_attn_kernel_steps")
         return self.logits.clone()
 
     def _capture(self, model: Whisper) -> None:
@@ -536,8 +531,10 @@ class StepGraph:
             _decoder_step_static(*args)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        launched = decode_attn.launches()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.logits = _decoder_step_static(*args)
+        self.attn_kernel = decode_attn.launches() > launched
         self.graph = graph
         METRICS.count("decode_graph_captures")
 
@@ -799,10 +796,7 @@ def decoder_step_tp(line: ShardLine, cross_k: list, cross_v: list,
     def cross_part(k, s, x, li):
         blk = s.decoder.blocks[li]
         q = blk.cross_attn.query(blk.cross_attn_ln(x))
-        if cross_k[k].shape[1] == b:
-            cross = _attend(q, cross_k[k][li], cross_v[k][li], heads)
-        else:  # beams share encoder rows
-            cross = _attend_grouped(q, cross_k[k][li], cross_v[k][li], heads)
+        cross = decode_attn.decode_attention_plain(q, cross_k[k][li], cross_v[k][li], heads)
         return _row_partial(cross, blk.cross_attn.out)
 
     def mlp_part(k, s, x, li):

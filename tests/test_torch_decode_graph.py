@@ -9,9 +9,10 @@ reorder over the live prefix against the out-of-place `index_select` of the
 whole buffers; no graph on the CPU. The tests marked `cuda` run on an
 NVIDIA GPU (skipped elsewhere): the graphed step against the same step
 run eagerly in bf16, whole decodes, one capture per shape, a graph in use
-kept from a second decode, foreign buffers, and the TP and int8 decodes,
-which stay eager. This file imports no JAX, so on a GPU host without JAX it
-runs on its own:
+kept from a second decode, foreign buffers, the TP and int8 decodes,
+which stay eager, and every graphed and int8 step's attention through the
+decode attention kernel (ops/decode_attention.py). This file imports no
+JAX, so on a GPU host without JAX it runs on its own:
 
     python -m pytest --noconftest tests/test_torch_decode_graph.py -q
 """
@@ -219,16 +220,15 @@ def test_graphed_step_matches_the_eager_step(tiny_bf16, card):
 @pytest.mark.parametrize("max_len", [24, 32])
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_graphed_decode_emits_the_eager_tokens(tiny_bf16, card, seed, max_len):
-    """The same tokens graphed as eager. At 32 positions the graph's caches
-    are the eager decode's length, so the average logprobs are equal too; at
-    24 the graph's are rounded up to 32 and its attention products run over
-    the masked tail's exact zeros as well, within 1e-4."""
+    """The same tokens and average logprobs graphed as eager. At 24 the
+    graph's caches are rounded up to 32 positions; the attention kernel
+    reads only the live prefix, so their length does not enter."""
     enc = _enc(4, TINY_BF16, card, seed)
     graphed = _decode(tiny_bf16, enc, 5, max_len)
     eager = _decode(tiny_bf16, enc, 5, max_len, step_fn=model.decoder_step)
     assert torch.equal(graphed[0], eager[0])
-    torch.testing.assert_close(graphed[1], eager[1], rtol=0, atol=0 if max_len == 32 else 1e-4)
-    torch.testing.assert_close(graphed[2], eager[2], rtol=0, atol=0 if max_len == 32 else 1e-4)
+    torch.testing.assert_close(graphed[1], eager[1], rtol=0, atol=0)
+    torch.testing.assert_close(graphed[2], eager[2], rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -287,3 +287,18 @@ def test_tensor_parallel_and_int8_stay_eager(tiny_bf16, card, path, monkeypatch)
     counters = _last_counters(run)
     assert counters["decode_steps"] > 0 and counters["decode_graph_replays"] == 0
     assert "decode_graph_captures" not in counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["graphed", "int8"])
+def test_every_step_takes_the_attention_kernel(tiny_bf16, card, path):
+    """decode_attn_kernel_pct, `decode_attn_kernel_steps` / `decode_steps`
+    x 100, reads 100: every replay of a graph captured with the kernel, and
+    every eager step of the int8 decoder, which launches it."""
+    enc = _enc(2, TINY_BF16, card, 8)
+    m = tiny_bf16 if path == "graphed" else layers.quantize_linears(_whisper(TINY_BF16, card))
+    counters = _last_counters(lambda: _decode(m, enc, 5))
+    assert counters["decode_steps"] > 0
+    assert counters["decode_attn_kernel_steps"] / counters["decode_steps"] * 100 == 100
+    replays = counters["decode_steps"] if path == "graphed" else 0
+    assert counters["decode_graph_replays"] == replays
