@@ -11,10 +11,11 @@ lines and a cue. A job's sections run in batches of at most DECODE_ROWS
 steps for every row at once through the latent cache, `max_new_tokens`
 (192) ids a row. On the card a batch is padded to DECODE_ROWS rows and
 each decode step replays the CUDA graph of its shape (`models/llm/model.py`
-`DecodeGraph`), so that one shape serves every batch. With
-`stop_at_eos` (the default) the rows stop once each has emitted EOS,
-checked every `EOS_CHECK_STEPS` steps (the one read of the device inside
-the loop) and cut there; without it every row runs all steps.
+`decode_graph`, held by `models/step_graphs.py`), so that one shape serves
+every batch. With `stop_at_eos` (the default) the rows stop once each has
+emitted EOS, checked every `EOS_CHECK_STEPS` steps (the one read of the
+device inside the loop) and cut there; without it every row runs all
+steps.
 
 Other settings: `model` ("moonlight-16b-a3b"), `dims` (overrides of its
 `config.json` keys, for small test models), `compute_dtype` ("bfloat16" on
@@ -173,11 +174,9 @@ def generate(model: llm.Moonlight, prompts: list[list[int]], max_new_tokens: int
     else:
         width, holder = rows, nullcontext()
     with holder as graph:
-        if graph is None:
-            cache = llm.LatentCache(cfg, width, length, steps, model.dtype, dev)
-        else:
-            cache = graph.cache
-            cache.reset()
+        cache = (llm.LatentCache(cfg, width, length, steps, model.dtype, dev) if graph is None
+                 else graph.buffers)
+        cache.reset()
         with METRICS.span("llm.prefill"):
             ids = torch.tensor([t for p in prompts for t in p], device=dev)
             logits = llm.prefill(model, ids, lengths, cache)

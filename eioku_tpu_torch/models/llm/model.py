@@ -33,9 +33,11 @@ The layer, as the checkpoint's `modeling_deepseek.py` computes it: pre-norm
   back to the host. Two shared experts run as one MLP of width 2,816.
 
 Decode runs a batch's rows at once; `decode_step` is one body launched op by
-op (the CPU) or, on a `DecodeGraph`'s buffers, a replay of its CUDA graph:
-the eager step is bound by the host's ~1,700 launches. Each decode step
-logs the experts every row was routed to (`LatentCache.routes`).
+op (the CPU) or, on the LatentCache of a `decode_graph` (held by
+models/step_graphs.py, the holder Whisper's decoder step shares), a replay
+of its CUDA graph: the eager step is bound by the host's ~1,700 launches.
+Each decode step logs the experts every row was routed to
+(`LatentCache.routes`).
 
 Parameters are stored in the serving type (bf16 on the card) except the
 router's weight and bias (fp32, as the published gate computes). The
@@ -46,16 +48,14 @@ names into them one tensor at a time.
 from __future__ import annotations
 
 import math
-import threading
 from collections.abc import Iterable, Mapping
-from contextlib import contextmanager
 from dataclasses import dataclass, fields
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eioku_tpu_torch.utils.metrics import METRICS
+from eioku_tpu_torch.models import step_graphs
 
 # moonshotai/Moonlight-16B-A3B's config.json, the keys this model reads
 MOONLIGHT_16B_A3B = {
@@ -456,10 +456,10 @@ class LatentCache:
     """One generation's state on the device: per layer and row, the latent
     entries of `length` positions ([L, R, T, 576], zeros where nothing was
     written); each row's prompt length; the experts each decode step routed
-    each row to, by expert layer (`routes` [L_moe, R, steps, k]); and the
+    each row to, by expert layer (`routes` [L_moe, R, steps, k]); the
     experts the prefill's expert-layer calls gave at least one token (a
-    device count). `graph` is the DecodeGraph whose buffers these are, if
-    any."""
+    device count); and the step's tokens and positions [R], which a graphed
+    step reads (`decode_graph`)."""
 
     def __init__(self, cfg: MoonlightConfig, rows: int, length: int, steps: int,
                  dtype: torch.dtype, device):
@@ -474,9 +474,10 @@ class LatentCache:
         self.routes = torch.zeros(moe_layers, rows, max(steps, 1), cfg.num_experts_per_tok,
                                   dtype=torch.long, device=device)
         self.prefill_hits = torch.zeros((), dtype=torch.long, device=device)
+        self.tokens = torch.zeros(rows, dtype=torch.long, device=device)
+        self.pos = torch.zeros(rows, dtype=torch.long, device=device)
         self.n_experts = cfg.n_routed_experts
         self.length = length
-        self.graph: DecodeGraph | None = None
 
     def reset(self) -> None:
         """Empty for a new generation (a graph's buffers are reused)."""
@@ -543,14 +544,14 @@ def prefill(model: Moonlight, ids: torch.Tensor, lengths: list[int],
 
 
 @torch.no_grad()
-def _decode_eager(model: Moonlight, tokens: torch.Tensor, pos: torch.Tensor,
-                  cache: LatentCache) -> torch.Tensor:
-    """The decode step's one body, launched op by op or captured."""
-    cfg = model.cfg
+def _decode_eager(model: Moonlight, cache: LatentCache) -> torch.Tensor:
+    """The decode step's one body, at the cache's tokens and positions,
+    launched op by op or captured."""
+    cfg, pos = model.cfg, cache.pos
     cos, sin = model.rope_cos[pos].to(model.dtype), model.rope_sin[pos].to(model.dtype)
     valid = (model.positions[:cache.length] <= pos[:, None]).unsqueeze(1)
     column = pos - cache.prompt  # the step's column of the route log
-    h = F.embedding(tokens, model.embed_tokens)
+    h = F.embedding(cache.tokens, model.embed_tokens)
     for i, layer in enumerate(model.layers):
         q_nope, q_pe, latent = _project(
             layer, cfg, rms_norm(h, layer.input_layernorm, cfg.rms_norm_eps), cos, sin)
@@ -572,69 +573,21 @@ def decode_step(model: Moonlight, tokens: torch.Tensor, pos: torch.Tensor,
     device). Writes each row's latent entry at its position, attends
     through the absorbed path over the whole cache (positions past the
     row's own masked) and logs the experts each row was routed to. Returns
-    the logits [R, V] (fp32). Reads nothing back to the host; on a graph's
-    cache it replays the graph."""
-    if cache.graph is not None:
-        return cache.graph.replay(tokens, pos)
-    return _decode_eager(model, tokens, pos, cache)
+    the logits [R, V] (fp32). Reads nothing back to the host; on the cache
+    of a `decode_graph` it replays the graph."""
+    cache.tokens.copy_(tokens)
+    cache.pos.copy_(pos)
+    graph = step_graphs.holding(model, lambda buffers: buffers is cache)
+    return _decode_eager(model, cache) if graph is None else graph.replay(model)
 
 
-class DecodeGraph:
-    """The decode step of one shape (rows, cache length, steps) captured as a
-    CUDA graph over static buffers: the tokens, the positions and a
-    LatentCache that the generations of this shape reuse, one at a time. A
-    replay launches the step's ~1,700 kernels at once, where the eager step
-    is bound by the host's launches."""
-
-    def __init__(self, model: Moonlight, rows: int, length: int, steps: int):
-        dev = model.device
-        self.cache = LatentCache(model.cfg, rows, length, steps, model.dtype, dev)
-        self.tokens = torch.zeros(rows, dtype=torch.long, device=dev)
-        self.pos = torch.zeros(rows, dtype=torch.long, device=dev)
-        args = (model, self.tokens, self.pos, self.cache)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):  # warm-up: workspaces and the allocator's blocks
-            _decode_eager(*args)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.logits = _decode_eager(*args)
-        self.cache.graph = self
-        self.in_use = False  # a generation holds the buffers
-
-    def replay(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        self.tokens.copy_(tokens)
-        self.pos.copy_(pos)
-        self.graph.replay()
-        METRICS.count("llm_decode_graph_replays")
-        return self.logits.clone()
-
-
-GRAPHS = 4  # decode shapes a model keeps captured
-_GRAPHS_LOCK = threading.Lock()
-
-
-@contextmanager
 def decode_graph(model: Moonlight, rows: int, length: int, steps: int):
-    """The model's graph of this decode shape, held for one generation:
-    captured at its first use, None while another generation holds it
-    (that one decodes eagerly). The least recently used of more than
-    GRAPHS shapes is released. Counts `llm_decode_graph_captures`, and
-    each replay `llm_decode_graph_replays`."""
-    with _GRAPHS_LOCK:
-        graphs = model.__dict__.setdefault("_decode_graphs", {})
-        key = (rows, length, steps)
-        graph = graphs.pop(key, None)
-        if graph is None:
-            graph = DecodeGraph(model, rows, length, steps)
-            METRICS.count("llm_decode_graph_captures")
-        graphs[key] = graph  # most recently used last
-        while len(graphs) > GRAPHS:
-            graphs.pop(next(iter(graphs)))
-        held, graph.in_use = graph.in_use, True
-    try:
-        yield None if held else graph
-    finally:
-        if not held:
-            graph.in_use = False
+    """A context that yields the model's graphed decode step of this shape
+    for one generation (models/step_graphs.py `hand_out`), or None while
+    another generation holds it (that one decodes eagerly). Its `buffers`
+    are a LatentCache that the generations of this shape reuse. Counters
+    `llm_decode_graph_captures` and `llm_decode_graph_replays`."""
+    return step_graphs.hand_out(
+        model, (rows, length, steps),
+        lambda: LatentCache(model.cfg, rows, length, steps, model.dtype, model.device),
+        _decode_eager, prefix="llm_")

@@ -9,9 +9,10 @@ the timestamp rules, a no-speech probability read after SOT, and beam search
 only candidate is EOT at logprob 0). The JAX package's `lax.while_loop` is a
 Python loop here that stops when every row has finished or the length cap
 is reached; each step is one `decoder_step` plus a few tensor operations on
-the device. On the card the decode runs in a `StepGraph`'s buffers, whose
-addresses stay fixed (beams are reordered in place), so that each
-`decoder_step` replays one CUDA graph.
+the device. A one-device decode runs in one `DecodeBuffers`, whose
+addresses stay fixed (beams are reordered in place); on the card they are
+a step graph's (models/step_graphs.py), so that each `decoder_step`
+replays one CUDA graph.
 
 Timestamp rules (the public Whisper reference decoder's):
   - the no-timestamps token is suppressed when timestamps are requested;
@@ -33,6 +34,7 @@ import torch
 from eioku_tpu_torch.models.whisper.model import (
     Whisper,
     WhisperShards,
+    decode_buffers,
     decoder_step,
     decoder_step_tp,
     precompute_cross_kv,
@@ -172,8 +174,7 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
                            sot_index: int = 0, sample: bool = False,
                            temperature: float = 1.0,
                            generator: torch.Generator | None = None,
-                           step_fn=None, cross_kv_fn=None,
-                           kv_dim: int | None = None):
+                           step_fn=None, cross_kv_fn=None):
     """Decode a batch of encoded 30 s windows with beam search + logit rules.
 
     enc_out [B, 1500, d]; initial_tokens [B, n_init] SOT sequences.
@@ -184,13 +185,13 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     sampling chains at `temperature` (faster-whisper's `best_of`), drawn
     from `generator` (on enc_out's device), which must be given; ranking
     still picks the chain with the best average unscaled logprob.
-    step_fn / cross_kv_fn / kv_dim: the tensor-parallel decode
+    step_fn / cross_kv_fn: the tensor-parallel decode
     (`whisper_decode_windows_tp`) swaps in `decoder_step_tp` with per-shard
-    lists of cross K/V and of caches of kv_dim features (each cache on its
-    shard's device); the defaults are the one-device `decoder_step`,
-    `precompute_cross_kv` and the model's width, and with them, on the
-    current card and where the decoder's linears are float ones, the decode
-    runs in the buffers of `step_graph` and its steps replay a CUDA graph.
+    lists of cross K/V and of caches as wide (each cache on its shard's
+    device); the defaults are the one-device `decoder_step` over one
+    `DecodeBuffers`, and with them, on the current card and where the
+    decoder's linears are float ones, the decode runs in the buffers of
+    `step_graph` and its steps replay a CUDA graph.
     Returns (tokens [B, max_len] int64, the best beam per window, prompt
     included and EOT-padded; avg_logprob [B] float32 over generated tokens
     incl. EOT; no_speech_prob [B] float32)."""
@@ -209,22 +210,24 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
     with (nullcontext() if step_fn or cross_kv_fn
           else step_graph(model, enc_out, bk, max_len)) as graph:
         with METRICS.span("decode.cross_kv"):
-            # [L, B, S, d]: beams fold into the token batch, cross-KV stays one
-            # row per window (decoder_step groups each window's k beams onto it)
-            if graph is None:
-                cross_k, cross_v = (cross_kv_fn or precompute_cross_kv)(model, enc_out)
+            # beams fold into the token batch, cross-KV stays one row per window
+            # (decoder_step groups each window's k beams onto it)
+            if cross_kv_fn:  # per-shard lists, each cache beside its cross K
+                cross_k, cross_v = cross_kv_fn(model, enc_out)
                 tokens = torch.empty((bk, max_len), dtype=torch.long, device=dev)
 
-                def new_cache(ck: torch.Tensor) -> torch.Tensor:  # beside its cross K
-                    return torch.zeros((cfg.n_dec_layers, bk, max_len, kv_dim or cfg.dim),
+                def new_cache(ck: torch.Tensor) -> torch.Tensor:
+                    return torch.zeros((cfg.n_dec_layers, bk, max_len, ck.shape[-1]),
                                        dtype=enc_out.dtype, device=ck.device)
-                self_k, self_v = _each(new_cache, cross_k), _each(new_cache, cross_k)
-            else:  # the shape's buffers, at the addresses its CUDA graph reads and writes
-                tokens, self_k, self_v, cross_k, cross_v = graph.buffers
-                tokens = tokens[:, :max_len]
-                precompute_cross_kv(model, enc_out, out=(cross_k, cross_v))
-                self_k.zero_()
-                self_v.zero_()
+                self_k, self_v = [new_cache(c) for c in cross_k], [new_cache(c) for c in cross_k]
+            else:  # a graph's buffers, at the addresses it reads and writes, or new ones
+                buf = (graph.buffers if graph is not None
+                       else decode_buffers(model, enc_out, bk, max_len))
+                precompute_cross_kv(model, enc_out, out=(buf.cross_k, buf.cross_v))
+                buf.self_k.zero_()
+                buf.self_v.zero_()
+                tokens, self_k, self_v, cross_k, cross_v = (
+                    buf.tokens[:, :max_len], buf.self_k, buf.self_v, buf.cross_k, buf.cross_v)
             tokens.fill_(eot)
             tokens[:, :n_init] = initial_tokens.to(dev, torch.long).repeat_interleave(k, 0)
         step_fn = step_fn or decoder_step
@@ -323,5 +326,4 @@ def whisper_decode_windows_tp(model: Whisper | WhisperShards, enc_out: torch.Ten
     shards = shard_whisper(model, mesh, axis)
     return whisper_decode_windows(
         shards.lines[0], enc_out, initial_tokens, suppress_always, suppress_begin,
-        step_fn=decoder_step_tp, cross_kv_fn=precompute_cross_kv_tp,
-        kv_dim=shards.cfg.dim // shards.tp, **kwargs)
+        step_fn=decoder_step_tp, cross_kv_fn=precompute_cross_kv_tp, **kwargs)

@@ -24,16 +24,14 @@ version), and `cross_attention_alignment`, whose cross-attention weights
 are its output (word timestamps). `decoder_step` writes the new key/value
 into the caches IN PLACE (the JAX version returns updated copies). Any
 linear may be a `QuantLinear` (int8, `layers.quantize_linears`). On the
-card, a decode's steps replay one CUDA graph of the step (`StepGraph`)
-where the decoder's linears are float ones.
+card, where the decoder's linears are float ones, a decode's steps replay
+one CUDA graph of the step over its `DecodeBuffers` (`step_graph`, held by
+models/step_graphs.py, the holder Moonlight's decode shares).
 """
 from __future__ import annotations
 
 import math
-import threading
-import weakref
-from collections import OrderedDict
-from contextlib import contextmanager
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -42,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eioku_tpu_torch.models import step_graphs
 from eioku_tpu_torch.models.layers import (
     LayerNorm,
     Linear,
@@ -418,6 +417,43 @@ def _cross_and_mlp(block: ResidualAttentionBlock, x: torch.Tensor, cross_k: torc
     return x + _mlp(block.mlp_ln(x), block)
 
 
+@dataclass
+class DecodeBuffers:
+    """A one-device decode's state: tokens [B, n] int64, the self caches
+    [L, B, n, d] and the cross caches [L, B_cross, S_enc, d], which the decode
+    fills and reorders in place; `pos`, the one-element device position the
+    step reads; `attn_kernel`, whether the step last run on them (or captured
+    over them) launched the attention kernel."""
+    tokens: torch.Tensor
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    pos: torch.Tensor
+    attn_kernel: bool = False
+
+    def holds(self, tokens, *caches) -> bool:
+        """Whether the tensors are these buffers: the caches (self_k, self_v,
+        cross_k, cross_v) themselves, the tokens the buffer or its first
+        columns."""
+        return (tokens.data_ptr() == self.tokens.data_ptr()
+                and tokens.stride() == self.tokens.stride()
+                and all(c is b for c, b in zip(caches, (self.self_k, self.self_v,
+                                                        self.cross_k, self.cross_v))))
+
+
+def decode_buffers(model: Whisper, enc_out: torch.Tensor, rows: int, n: int) -> DecodeBuffers:
+    """Uninitialised buffers for a decode of `rows` token rows over n
+    positions and enc_out's windows [B_cross, S_enc, d], on its device."""
+    (b, s_enc, d), layers = enc_out.shape, model.cfg.n_dec_layers
+
+    def empty(*shape, dtype=enc_out.dtype):
+        return torch.empty(shape, dtype=dtype, device=enc_out.device)
+    return DecodeBuffers(empty(rows, n, dtype=torch.long), empty(layers, rows, n, d),
+                         empty(layers, rows, n, d), empty(layers, b, s_enc, d),
+                         empty(layers, b, s_enc, d), empty(1, dtype=torch.long))
+
+
 @torch.no_grad()
 def decoder_step(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
                  self_k: torch.Tensor, self_v: torch.Tensor,
@@ -433,172 +469,66 @@ def decoder_step(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
     one row. Returns logits [B, vocab] fp32. Counts
     `decode_attn_kernel_steps` where the step launched the attention kernel.
 
-    Given the buffers of one of the model's `StepGraph`s (`step_graph`, on
-    the card), the step is one replay of the CUDA graph captured over them,
-    and the logits a copy that no later replay overwrites."""
-    graph = _graph_holding(model, tokens, self_k, self_v, cross_k, cross_v)
-    if graph is not None:
-        return graph.step(model, pos)
-    launched = decode_attn.launches()
-    logits = _decoder_step_static(model, cross_k, cross_v, tokens, self_k, self_v,
-                                  torch.tensor([pos], device=tokens.device))
-    if decode_attn.launches() > launched:
+    Given the tensors of the `DecodeBuffers` of one of the model's
+    `step_graph`s (on the card), the step is one replay of the CUDA graph
+    captured over them, and the logits a copy that no later replay
+    overwrites."""
+    graph = step_graphs.holding(model, lambda b: b.holds(tokens, self_k, self_v,
+                                                         cross_k, cross_v))
+    if graph is None:
+        buf = DecodeBuffers(tokens, self_k, self_v, cross_k, cross_v,
+                            torch.tensor([pos], device=tokens.device))
+        logits = _decoder_step_static(model, buf)
+    else:
+        buf = graph.buffers
+        buf.pos.fill_(pos)
+        logits = graph.replay(model)
+    if buf.attn_kernel:
         METRICS.count("decode_attn_kernel_steps")
     return logits
 
 
 @torch.no_grad()
-def _decoder_step_static(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
-                         self_k: torch.Tensor, self_v: torch.Tensor,
-                         pos: torch.Tensor) -> torch.Tensor:
-    """`decoder_step` at `pos`, a one-element int64 tensor on the tokens'
-    device, with no shape that depends on it: the embeddings are indexed by
-    it, the new keys and values go into the caches with `index_copy_`, and
-    the self-attention reads `pos` on the device. No host synchronisation: a
-    CUDA graph captures it."""
-    cfg, dec = model.cfg, model.decoder
-    tok = tokens.gather(1, pos.expand(tokens.shape[0], 1))  # [B, 1]
+def _decoder_step_static(model: Whisper, buf: DecodeBuffers) -> torch.Tensor:
+    """`decoder_step` on the buffers at `buf.pos`, with no shape that
+    depends on it: the embeddings are indexed by it, the new keys and values
+    go into the caches with `index_copy_`, and the self-attention reads it
+    on the device. No host synchronisation: a CUDA graph captures it."""
+    cfg, dec, pos = model.cfg, model.decoder, buf.pos
+    launched = decode_attn.launches()
+    tok = buf.tokens.gather(1, pos.expand(buf.tokens.shape[0], 1))  # [B, 1]
     x = (dec.token_embedding.weight[tok]
          + dec.positional_embedding.index_select(0, pos)[None]).to(cfg.dtype)
     for li, block in enumerate(dec.blocks):
         h = block.attn_ln(x)
         at = block.attn
-        self_k[li].index_copy_(1, pos, at.key(h))
-        self_v[li].index_copy_(1, pos, at.value(h))
-        attn = decode_attn.decode_attention(at.query(h), self_k[li], self_v[li], cfg.n_heads,
-                                            pos=pos)
-        x = _cross_and_mlp(block, x + at.out(attn), cross_k[li], cross_v[li], cfg.n_heads)
+        buf.self_k[li].index_copy_(1, pos, at.key(h))
+        buf.self_v[li].index_copy_(1, pos, at.value(h))
+        attn = decode_attn.decode_attention(at.query(h), buf.self_k[li], buf.self_v[li],
+                                            cfg.n_heads, pos=pos)
+        x = _cross_and_mlp(block, x + at.out(attn), buf.cross_k[li], buf.cross_v[li],
+                           cfg.n_heads)
+    buf.attn_kernel = decode_attn.launches() > launched
     return _logits(model, dec.ln(x)[:, 0])
 
 
-# -- the decoder step as one CUDA graph -------------------------------------------------
-
-# Decode shapes a model keeps captured, the least recently used dropped first.
-# A batched transcription makes one shape (batch x beam rows); the conditioned
-# decode (beam rows, 131-260 positions at 128 new tokens after its five prompt
-# buckets) makes two, its caches rounded up to 256 and 448 positions; one more
-# for a second batched shape (a prompt, another beam or batch size).
-STEP_GRAPHS = 4
-_STEP_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # model -> its graphs
-_STEP_GRAPHS_LOCK = threading.Lock()
-
-
-class StepGraph:
-    """The static buffers of one decode shape on the card, and the CUDA graph
-    of `_decoder_step_static` over them once the first step has captured it.
-
-    `buffers`: tokens [B, n] int64, the self caches [L, B, n, d] and the
-    cross caches [L, B_cross, S_enc, d], which a decode fills and reorders in
-    place (n: the decode's length rounded up, see `step_graph`); `pos` the
-    device position the graph reads; `weights` the addresses of the
-    decoder's parameters that the graph reads; `in_use` whether a decode
-    holds the buffers."""
-
-    def __init__(self, buffers: tuple, weights: tuple):
-        self.buffers = buffers
-        self.pos = torch.zeros(1, dtype=torch.long, device=buffers[0].device)
-        self.weights = weights
-        self.graph = None
-        self.logits = None
-        self.attn_kernel = False  # whether the captured step launches the attention kernel
-        self.in_use = False
-
-    def holds(self, tokens, self_k, self_v, cross_k, cross_v) -> bool:
-        """Whether the tensors are this graph's buffers: the caches
-        themselves, the tokens the buffer or its first columns."""
-        buf = self.buffers[0]
-        return (tokens.data_ptr() == buf.data_ptr() and tokens.stride() == buf.stride()
-                and all(t is b for t, b in zip((self_k, self_v, cross_k, cross_v),
-                                               self.buffers[1:])))
-
-    def step(self, model: Whisper, pos: int) -> torch.Tensor:
-        """The decoder step at `pos` on the buffers: logits [B, vocab] fp32."""
-        self.pos.fill_(pos)
-        if self.graph is None:
-            self._capture(model)
-        self.graph.replay()
-        METRICS.count("decode_graph_replays")
-        if self.attn_kernel:
-            METRICS.count("decode_attn_kernel_steps")
-        return self.logits.clone()
-
-    def _capture(self, model: Whisper) -> None:
-        tokens, self_k, self_v, cross_k, cross_v = self.buffers
-        args = (model, cross_k, cross_v, tokens, self_k, self_v, self.pos)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # warm-up: this position's writes, which the replay repeats
-            _decoder_step_static(*args)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        launched = decode_attn.launches()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.logits = _decoder_step_static(*args)
-        self.attn_kernel = decode_attn.launches() > launched
-        self.graph = graph
-        METRICS.count("decode_graph_captures")
-
-
-def _graph_holding(model, *tensors) -> StepGraph | None:
-    """The model's StepGraph whose buffers the tensors are, if any."""
-    if not isinstance(model, Whisper):  # e.g. a tensor-parallel ShardLine
-        return None
-    with _STEP_GRAPHS_LOCK:
-        graphs = _STEP_GRAPHS.get(model, {})
-        return next((g for g in graphs.values() if g.holds(*tensors)), None)
-
-
-@contextmanager
 def step_graph(model: Whisper, enc_out: torch.Tensor, rows: int, max_len: int):
-    """Yields the StepGraph for a decode of `rows` token rows up to `max_len`
-    over enc_out's windows [B_cross, S_enc, d], the decode's alone until the
-    block ends, or None where the step stays eager: off the current card, a
-    decoder with int8 linears, or the shape's graph held by another decode.
-
-    A graph is made at a shape's first use and kept (STEP_GRAPHS a model);
-    one captured over other decoder weights than the model's now is made
-    anew. Its length is max_len rounded up to a power of two, at most the
+    """A context that yields the model's graphed step for a decode of `rows`
+    token rows up to `max_len` over enc_out's windows, the decode's alone
+    until the block ends (models/step_graphs.py `hand_out`), or None where
+    the step stays eager: off the current card, a decoder with int8 linears,
+    or the shape's graph held by another decode. Its `buffers` are
+    `DecodeBuffers` of max_len rounded up to a power of two, at most the
     decoder's context, so that decodes of near lengths share a graph: the
     tokens a decode works on are the buffer's first max_len columns."""
     if not (enc_out.is_cuda and enc_out.device.index == torch.cuda.current_device()
-            and isinstance(model, Whisper)
             and not any(isinstance(m, QuantLinear) for m in model.decoder.modules())):
-        yield None
-        return
+        return nullcontext()
     n = min(1 << (max_len - 1).bit_length(),
             max(max_len, model.decoder.positional_embedding.shape[0]))
-    weights = tuple(p.data_ptr() for p in model.decoder.parameters())
-    key = (rows, n, tuple(enc_out.shape), enc_out.dtype)
-    with _STEP_GRAPHS_LOCK:
-        graphs = _STEP_GRAPHS.setdefault(model, OrderedDict())
-        graph = graphs.pop(key, None)
-        if graph is not None and graph.in_use:
-            graphs[key] = graph
-            graph = None
-        else:
-            if graph is None or graph.weights != weights:
-                idle = [k for k, g in graphs.items() if not g.in_use]
-                for old in idle[:max(len(graphs) + 1 - STEP_GRAPHS, 0)]:
-                    del graphs[old]
-                graph = _new_step_graph(model, enc_out, rows, n, weights)
-            graph.in_use = True
-            graphs[key] = graph
-    try:
-        yield graph
-    finally:
-        if graph is not None:
-            graph.in_use = False
-
-
-def _new_step_graph(model: Whisper, enc_out: torch.Tensor, rows: int, n: int,
-                    weights: tuple) -> StepGraph:
-    (b, s_enc, d), layers = enc_out.shape, model.cfg.n_dec_layers
-
-    def zeros(*shape, dtype=enc_out.dtype):
-        return torch.zeros(shape, dtype=dtype, device=enc_out.device)
-    return StepGraph((zeros(rows, n, dtype=torch.long), zeros(layers, rows, n, d),
-                      zeros(layers, rows, n, d), zeros(layers, b, s_enc, d),
-                      zeros(layers, b, s_enc, d)), weights)
+    return step_graphs.hand_out(model, (rows, n, tuple(enc_out.shape), enc_out.dtype),
+                                lambda: decode_buffers(model, enc_out, rows, n),
+                                _decoder_step_static, prefix="")
 
 
 # -- tensor and pipeline parallelism ----------------------------------------------------

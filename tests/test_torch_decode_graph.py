@@ -1,5 +1,5 @@
 """The Whisper decoder step as one CUDA graph (models/whisper/model.py
-`decoder_step`, `StepGraph`, `step_graph`; decoding.py `reorder_beams`).
+`decoder_step`, `DecodeBuffers`, `step_graph`; decoding.py `reorder_beams`).
 
 On the CPU: `decoder_step`, whose self-attention runs over the whole cache
 with the tail masked, run in fp32 over caches longer than the tokens (as a
@@ -188,7 +188,8 @@ def _decode(m, enc, beams, max_len=24, **kw):
 
 def _filled_graph(m, graph, enc, seed: int):
     """The graph's buffers with the encoder's cross K/V and random tokens."""
-    tokens, self_k, self_v, cross_k, cross_v = graph.buffers
+    b = graph.buffers
+    tokens, self_k, self_v, cross_k, cross_v = b.tokens, b.self_k, b.self_v, b.cross_k, b.cross_v
     model.precompute_cross_kv(m, enc, out=(cross_k, cross_v))
     tokens.copy_(torch.randint(0, m.cfg.vocab_size, tokens.shape,
                                generator=torch.Generator().manual_seed(seed)))

@@ -207,7 +207,7 @@ def test_graph_replays_the_eager_step_bit_for_bit(tiny, card):
     lengths = [len(p) for p in PROMPTS]
     ids = torch.tensor([t for p in PROMPTS for t in p], device=card)
     with llm.decode_graph(model, 4, 64, 8) as graph:
-        cache = graph.cache
+        cache = graph.buffers
         cache.reset()
         first = llm.prefill(model, ids, lengths, cache)
         cache.copy_first_row(3)
@@ -217,7 +217,7 @@ def test_graph_replays_the_eager_step_bit_for_bit(tiny, card):
         eager.kv.copy_(cache.kv)
         eager.prompt.copy_(cache.prompt)
         for _ in range(8):
-            want = llm._decode_eager(model, tokens, pos, eager)
+            want = llm.decode_step(model, tokens, pos, eager)
             got = llm.decode_step(model, tokens, pos, cache)
             assert torch.equal(got, want)
             tokens, pos = got.argmax(-1), pos + 1
@@ -231,9 +231,32 @@ def test_graph_replays_the_eager_step_bit_for_bit(tiny, card):
         graphed = summarize.generate(model, PROMPTS, 9, False, 4)
     counters = METRICS.recent_tasks()[-1]["counters"]
     assert counters["llm_decode_graph_replays"] == counters["llm_decode_steps"] == 8
-    assert "llm_decode_graph_captures" not in counters  # captured by the first holder
+    assert counters["llm_decode_graph_captures"] == 1  # captured at its first replay
     assert len(graphed) == 3 and all(len(r) == 9 for r in graphed)
     assert graphed == eager_ids
+
+
+@pytest.mark.cuda
+def test_a_held_graph_outlives_four_other_shapes(tiny, card):
+    """A generation's graph is never dropped while held, however many other
+    shapes are made meanwhile: the next generation of its shape replays it
+    with no new capture and emits what the first did."""
+    from eioku_tpu_torch.ml import summarize
+
+    _, state = tiny
+    model = llm.load_state_dict(llm.empty_model(llm.MoonlightConfig.from_dict(TINY),
+                                                torch.bfloat16, card), state)
+    first = summarize.generate(model, PROMPTS, 9, False, 4)  # captures (4, 256, 8)
+    with llm.decode_graph(model, 4, 256, 8) as held:
+        for steps in range(1, 5):
+            with llm.decode_graph(model, 4, 256, steps) as other:
+                assert held is not None and other is not None and other is not held
+    with METRICS.task("summarization"):
+        again = summarize.generate(model, PROMPTS, 9, False, 4)
+    counters = METRICS.recent_tasks()[-1]["counters"]
+    assert counters["llm_decode_graph_replays"] == counters["llm_decode_steps"] == 8
+    assert "llm_decode_graph_captures" not in counters
+    assert again == first
 
 
 def test_checkpoint_key_names_load(tiny):
