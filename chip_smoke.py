@@ -10,7 +10,7 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    the HGMMA (wgmma) and UTMALDG (TMA load) instructions in K3's library
    (cuobjdump --dump-sass) and fails if either is 0, or if ptxas reports a
    spill in K3's bf16 and f16 kernels, in K2's two kernels (mask and
-   scan) or in K4's;
+   scan) or in K4's or K5's;
 2. K1 scene-diff kernel against its plain PyTorch version on the card, at the
    main path's chain shape [257, 46080] and a ragged one (odd N, D not a
    multiple of 4): max abs error <= 1e-6, then kernel / plain / library time
@@ -46,6 +46,14 @@ Phases, each of which fails the run (exit code 1, no result line) on error:
    replayed at three positions equals each eager call. Then kernel / plain /
    bound / scaled_dot_product_attention times at the cell's cross and self
    (pos 127) shapes, calls and graph;
+3d. K5, the add-and-LayerNorm kernel (csrc/add_layer_norm.cu), against its
+   plain version at rows 1, 7, 40 and 64 and widths 384-1280, the
+   LayerNorm alone, after a product and after its bias, in bf16, f16 and
+   fp32: the residual bit for bit, h within one ulp of the normalised value
+   at the row's scale (four in fp32) carried through gamma and beta, 16-bit
+   h at least 99% bit for bit; one graph replayed equals its eager call. Then kernel /
+   plain / `F.layer_norm` times at the cell's [40, 1, 1280] and at 384,
+   calls and graph, beside the bound and the launch floor;
 4. the visual pass: InferenceEngine(device="cuda").run_task("visual_analysis")
    with all four sub-tasks at their defaults -- scenes, YOLOv8n objects,
    yolov8n-face faces (threshold FACE_CONF, embeddings on: ArcFace
@@ -344,6 +352,12 @@ K4_CASES = (  # query rows, K/V rows, frames, positions (None: all frames live)
     (5, 5, 448, (130, 447)),  # the conditioned decode's self
     (5, 1, 1500, None),  # and its cross
 )
+# K5, the add-and-LayerNorm kernel: the cell's step (40 beam rows of one
+# position at large-v3's 1280) and tiny's 384, timed; checked at every Whisper
+# width and 1-64 rows
+K5_ROWS, K5_WIDTHS, K5_TIMED = 40, (384, 512, 768, 1024, 1280), (1280, 384)
+K5_MODES = ("ln", "y", "y+b")  # the LayerNorm alone; after a product; after its bias too
+K5_EPS = 1e-5
 AUDIO_SECONDS, SILENT_WINDOW = 150, 2  # five 30 s windows, window 2 silent
 SAMPLES_PER_WINDOW = 30 * 16000
 WHISPER_CONFIG = {"model": "large-v3", "random_full_size": True,
@@ -518,7 +532,8 @@ def phase_build() -> dict:
     for name, label, entries in (
             ("flash_attention", "K3's bf16 and f16 kernels", ("flash_hopper",)),
             ("nms", "K2's kernels", ("nms_mask_kernel", "nms_scan_kernel")),
-            ("decode_attention", "K4's kernels", ("decode_attention_kernel",))):
+            ("decode_attention", "K4's kernels", ("decode_attention_kernel",)),
+            ("add_layer_norm", "K5's kernels", ("add_layer_norm_kernel",))):
         if name not in built:
             log(f"{label} were built before this run: their ptxas report is not checked")
             continue
@@ -955,6 +970,146 @@ def k4_times(dev) -> dict:
                 f"{r['bound_ms']:.5f} ms ({nbytes / 1e6:.1f} MB); "
                 f"{r['bound_ms'] / ms:.1%} of the bound")
         out[name] = r
+    return out
+
+
+def _k5_inputs(shape, dtype, gen, dev):
+    """x, y, b, w, beta for K5, w and beta away from the identity."""
+    import torch
+
+    d = shape[-1]
+
+    def r(*s, scale=1.0, shift=0.0):
+        return (torch.randn(s, generator=gen, device=dev) * scale + shift).to(dtype)
+    return (r(*shape, scale=3.0, shift=0.5), r(*shape), r(d, scale=0.1),
+            r(d, scale=0.3, shift=1.0), r(d, scale=0.1))
+
+
+def _k5_args(mode, y, b) -> dict:
+    return {"ln": {}, "y": {"y": y}, "y+b": {"y": y, "b": b}}[mode]
+
+
+def k5_excess(got, want, x, w) -> float:
+    """The largest error of K5's h past its tolerance (<= 0 within it): one
+    ulp of the type at the row's scale (its largest |n|, at least 1) in the
+    normalised value n (four in fp32, which shows every last-bit move of the
+    statistics and of rsqrtf), carried through gamma and beta with their
+    own roundings (csrc/add_layer_norm.cu: the fp32 statistics sum in
+    another order). x: the updated residual."""
+    import torch
+
+    bits, min_exp = {torch.bfloat16: (8, -126), torch.float16: (11, -14),
+                     torch.float32: (24, -126)}[x.dtype]
+
+    def ulp(v):
+        return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** min_exp)))
+                          - (bits - 1))
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    n = ((xf - mu) * torch.rsqrt(var + K5_EPS)).to(x.dtype).float()
+    scale = n.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
+    wf = w.float()
+    ulps = 4 if x.dtype == torch.float32 else 1
+    tol = ulps * ulp(scale) * wf.abs() + ulp(n * wf) + ulp(want.float())
+    return float(((got.float() - want.float()).abs() - tol).max())
+
+
+def phase_k5(dev) -> dict:
+    """K5, the add-and-LayerNorm kernel, against its plain version: rows 1,
+    7, 40 and 64 at every Whisper width, the LayerNorm alone, after a
+    product and after its bias, in bf16, f16 and fp32 (the residual bit for
+    bit, h within `k5_excess`'s tolerance, 16-bit h at least 99% bit for
+    bit); one graph replayed equals its eager call; then times at the cell's
+    shape and tiny's width."""
+    import torch
+
+    from eioku_tpu_torch.ops.add_layer_norm import add_layer_norm, add_layer_norm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst, same = {}, {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        key = str(dtype).removeprefix("torch.")
+        for rows in (1, 7, K5_ROWS, 64):
+            for d in K5_WIDTHS:
+                for mode in K5_MODES:
+                    x, y, b, w, beta = _k5_inputs((rows, 1, d), dtype, gen, dev)
+                    want_x, got_x = x.clone(), x.clone()
+                    want = add_layer_norm_plain(want_x, w, beta, K5_EPS, **_k5_args(mode, y, b))
+                    got = add_layer_norm(got_x, w, beta, K5_EPS, **_k5_args(mode, y, b))
+                    err = k5_excess(got, want, want_x, w)
+                    share = float((got == want).float().mean())
+                    if not torch.equal(got_x, want_x) or not (
+                            bool(torch.isfinite(got).all()) and err <= 0):
+                        raise AssertionError(f"K5 {dtype} [{rows}, 1, {d}] {mode}: residual "
+                                             f"equal {torch.equal(got_x, want_x)}, h past "
+                                             f"the tolerance by {err}")
+                    if dtype != torch.float32 and share < 0.99:
+                        raise AssertionError(f"K5 {dtype} [{rows}, 1, {d}] {mode}: "
+                                             f"{share:.2%} of h bit for bit")
+                    worst[key] = max(worst.get(key, -1.0), err)
+                    same[key] = min(same.get(key, 1.0), share)
+    log(f"K5 against its plain version: largest excess over the tolerance {worst}; "
+        f"least share of h bit for bit {same}")
+    x, y, b, w, beta = _k5_inputs((K5_ROWS, 1, 1280), torch.bfloat16, gen, dev)
+    start = x.clone()
+    eager_x = x.clone()
+    eager = add_layer_norm(eager_x, w, beta, K5_EPS, y=y, b=b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        add_layer_norm(x, w, beta, K5_EPS, y=y, b=b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = add_layer_norm(x, w, beta, K5_EPS, y=y, b=b)
+    x.copy_(start)
+    graph.replay()
+    if not (torch.equal(out, eager) and torch.equal(x, eager_x)):
+        raise AssertionError("K5's replay differs from its eager call")
+    return {"excess_over_tolerance": worst, "bit_equal_least": same, **k5_times(dev)}
+
+
+def k5_times(dev) -> dict:
+    """K5 at the cell's step, [40, 1, 1280] bf16 after a product and its
+    bias, and at tiny's width 384: back-to-back calls and replayed from a
+    CUDA graph, over three input sets; the plain version (the op sequence
+    the step ran before K5: the bias add, the residual add and
+    `layer_norm`'s eager statistics) likewise; and `F.layer_norm` after the
+    two adds as the library's yardstick, which the port never calls. The
+    bound: x read and written, y read, h written and the three vectors
+    read, once, at 3.35 TB/s; beside it the launch floor."""
+    import torch
+    import torch.nn.functional as F
+
+    from eioku_tpu_torch.ops.add_layer_norm import add_layer_norm, add_layer_norm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    floor_ms = launch_floor_ms()
+    out = {"launch_floor_ms": floor_ms}
+    for d in K5_TIMED:
+        sets = [_k5_inputs((K5_ROWS, 1, d), torch.bfloat16, gen, dev) for _ in range(3)]
+
+        def kernel(x, y, b, w, beta):
+            return add_layer_norm(x, w, beta, K5_EPS, y=y, b=b)
+
+        def plain(x, y, b, w, beta):
+            return add_layer_norm_plain(x, w, beta, K5_EPS, y=y, b=b)
+
+        def library(x, y, b, w, beta, d=d):
+            return F.layer_norm(x + (y + b), (d,), w, beta, K5_EPS)
+        nbytes = (4 * K5_ROWS * d + 3 * d) * 2
+        r = {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        calls = lambda fn, args: cuda_ms(fn, iters=200, args=args)  # noqa: E731
+        for how, timer in (("calls", calls), ("graph", cuda_graph_ms)):
+            ms, plain_ms, library_ms = (timer(fn, args=sets) for fn in (kernel, plain, library))
+            r.update({f"{how}_ms": ms, f"{how}_plain_ms": plain_ms,
+                      f"{how}_library_ms": library_ms})
+            log(f"K5 [{K5_ROWS}, 1, {d}] bf16 after a product and its bias ({how}): kernel "
+                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, F.layer_norm after the adds "
+                f"{library_ms:.5f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({nbytes / 1e3:.1f} KB), launch floor {floor_ms:.5f} ms")
+        out[str(d)] = r
     return out
 
 
@@ -4649,6 +4804,7 @@ def main() -> int:
     k2 = timed("3 K2", phase_k2, dev)
     k3 = timed("3b K3", phase_k3, dev)
     k4 = timed("3c K4", phase_k4, dev)
+    k5 = timed("3d K5", phase_k5, dev)
     timed("4 fp32 references", phase_logits_reference, dev)
     with tempfile.TemporaryDirectory(prefix="eioku_smoke_") as workdir:
         sl = timed("4 visual", phase_slice, dev, workdir)
@@ -4707,6 +4863,10 @@ def main() -> int:
          "source": "eioku_tpu_torch/csrc/decode_attention.cu",
          "replaces": None,  # the JAX package leaves decoder attention outside any kernel
          "launches": tr["launches"]["decode_attention"], **k4},
+        {"name": "add_layer_norm", "route": "cuda",
+         "source": "eioku_tpu_torch/csrc/add_layer_norm.cu",
+         "replaces": None,  # the JAX package leaves the decoder's layer norms to XLA
+         "launches": tr["launches"]["add_layer_norm"], **k5},
     ]
     kernels[1]["launches_data_parallel_two_replicas"] = \
         det["data_parallel"]["two_replicas"]["k2_launches"]

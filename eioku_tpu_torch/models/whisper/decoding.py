@@ -233,6 +233,7 @@ def whisper_decode_windows(model: Whisper, enc_out: torch.Tensor,
         step_fn = step_fn or decoder_step
         METRICS.count("decode_graph_replays", 0)  # a decode that replays no graph reads 0
         METRICS.count("decode_attn_kernel_steps", 0)  # nor one whose attention stays plain
+        METRICS.count("decode_norm_kernel_steps", 0)  # nor one whose LayerNorms stay plain
         no_speech = torch.zeros((bk,), dtype=torch.float32, device=dev)
         with METRICS.span("decode.prefill"):
             for pos in range(n_init - 1):  # prefill: all but the last prompt token

@@ -17,16 +17,20 @@ decoder step's one-position self- and cross-attention go through
 ops/decode_attention.py (a hand-written kernel on the card that reads the
 caches in place and the self cache only up to the live position; on the CPU
 its plain version, `_attend`'s operations with a window's beams grouped
-onto its K/V). The decoder's other attention is plain torch, as the JAX
-package leaves it outside any kernel: the full-sequence and
-tensor-parallel decoders (the latter's cross-attention through the plain
-version), and `cross_attention_alignment`, whose cross-attention weights
-are its output (word timestamps). `decoder_step` writes the new key/value
-into the caches IN PLACE (the JAX version returns updated copies). Any
-linear may be a `QuantLinear` (int8, `layers.quantize_linears`). On the
-card, where the decoder's linears are float ones, a decode's steps replay
-one CUDA graph of the step over its `DecodeBuffers` (`step_graph`, held by
-models/step_graphs.py, the holder Moonlight's decode shares).
+onto its K/V); each residual branch's tail there (the output linear's bias
+add and the residual add) and the LayerNorm after it go through
+ops/add_layer_norm.py (a hand-written kernel on the card, the same
+operations in plain torch on the CPU). The decoder's other attention is
+plain torch, as the JAX package leaves it outside any kernel: the
+full-sequence and tensor-parallel decoders (the latter's cross-attention
+through the plain version), and `cross_attention_alignment`, whose
+cross-attention weights are its output (word timestamps). `decoder_step`
+writes the new key/value into the caches IN PLACE (the JAX version returns
+updated copies). Any linear may be a `QuantLinear` (int8,
+`layers.quantize_linears`). On the card, where the decoder's linears are
+float ones, a decode's steps replay one CUDA graph of the step over its
+`DecodeBuffers` (`step_graph`, held by models/step_graphs.py, the holder
+Moonlight's decode shares).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from eioku_tpu_torch.models.layers import (
     merge_heads,
     split_heads,
 )
+from eioku_tpu_torch.ops import add_layer_norm as add_ln
 from eioku_tpu_torch.ops import decode_attention as decode_attn
 from eioku_tpu_torch.ops.flash_attention import flash_attention
 from eioku_tpu_torch.parallel.collectives import on
@@ -405,16 +410,17 @@ def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor, out=None):
     return cross_k, cross_v
 
 
-def _cross_and_mlp(block: ResidualAttentionBlock, x: torch.Tensor, cross_k: torch.Tensor,
-                   cross_v: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """A decoder block past its self-attention at one position: the
-    cross-attention and MLP residuals. cross_k/cross_v [B_cross, S_enc, d]
-    may carry fewer rows than x: each group of B/B_cross consecutive rows
-    (beams) attends to one row, whose bytes the kernel reads once for all."""
-    ca = block.cross_attn
-    x = x + ca.out(decode_attn.decode_attention(ca.query(block.cross_attn_ln(x)), cross_k,
-                                                cross_v, n_heads))
-    return x + _mlp(block.mlp_ln(x), block)
+def _residual_ln(x: torch.Tensor, ln: nn.LayerNorm, lin: nn.Module | None = None,
+                 inp: torch.Tensor | None = None) -> torch.Tensor:
+    """`x = x + lin(inp)` in place, then `ln(x)`: one `add_layer_norm` (with
+    no `lin`, the LayerNorm alone). A float linear hands over its product
+    before the bias and the bias; an int8 one adds its own bias."""
+    if lin is None:
+        return add_ln.add_layer_norm(x, ln.weight, ln.bias, ln.eps)
+    if isinstance(lin, QuantLinear):
+        return add_ln.add_layer_norm(x, ln.weight, ln.bias, ln.eps, y=lin(inp))
+    return add_ln.add_layer_norm(x, ln.weight, ln.bias, ln.eps,
+                                 y=F.linear(inp, lin.weight.to(inp.dtype)), b=lin.bias)
 
 
 @dataclass
@@ -422,8 +428,9 @@ class DecodeBuffers:
     """A one-device decode's state: tokens [B, n] int64, the self caches
     [L, B, n, d] and the cross caches [L, B_cross, S_enc, d], which the decode
     fills and reorders in place; `pos`, the one-element device position the
-    step reads; `attn_kernel`, whether the step last run on them (or captured
-    over them) launched the attention kernel."""
+    step reads; `attn_kernel` and `norm_kernel`, whether the step last run
+    on them (or captured over them) launched the attention kernel and the
+    add-and-LayerNorm kernel."""
     tokens: torch.Tensor
     self_k: torch.Tensor
     self_v: torch.Tensor
@@ -431,6 +438,7 @@ class DecodeBuffers:
     cross_v: torch.Tensor
     pos: torch.Tensor
     attn_kernel: bool = False
+    norm_kernel: bool = False
 
     def holds(self, tokens, *caches) -> bool:
         """Whether the tensors are these buffers: the caches (self_k, self_v,
@@ -467,7 +475,8 @@ def decoder_step(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
     may carry fewer batch rows than tokens when several rows (beams) share
     one encoder state: each group of B/B_cross consecutive rows attends to
     one row. Returns logits [B, vocab] fp32. Counts
-    `decode_attn_kernel_steps` where the step launched the attention kernel.
+    `decode_attn_kernel_steps` and `decode_norm_kernel_steps` where the step
+    launched the attention kernel and the add-and-LayerNorm kernel.
 
     Given the tensors of the `DecodeBuffers` of one of the model's
     `step_graph`s (on the card), the step is one replay of the CUDA graph
@@ -485,6 +494,8 @@ def decoder_step(model: Whisper, cross_k, cross_v, tokens: torch.Tensor,
         logits = graph.replay(model)
     if buf.attn_kernel:
         METRICS.count("decode_attn_kernel_steps")
+    if buf.norm_kernel:
+        METRICS.count("decode_norm_kernel_steps")
     return logits
 
 
@@ -493,23 +504,35 @@ def _decoder_step_static(model: Whisper, buf: DecodeBuffers) -> torch.Tensor:
     """`decoder_step` on the buffers at `buf.pos`, with no shape that
     depends on it: the embeddings are indexed by it, the new keys and values
     go into the caches with `index_copy_`, and the self-attention reads it
-    on the device. No host synchronisation: a CUDA graph captures it."""
+    on the device. No host synchronisation: a CUDA graph captures it.
+
+    Each residual branch's tail (its output linear's bias add and the
+    residual add, x updated in place) and the LayerNorm after it are one
+    `add_layer_norm`: 1 + 3 a layer. The cross-attention's K/V may carry
+    fewer rows than the tokens: each group of B/B_cross consecutive rows
+    (beams) attends to one row, whose bytes the kernel reads once for all."""
     cfg, dec, pos = model.cfg, model.decoder, buf.pos
-    launched = decode_attn.launches()
+    attn_launched, norm_launched = decode_attn.launches(), add_ln.launches()
     tok = buf.tokens.gather(1, pos.expand(buf.tokens.shape[0], 1))  # [B, 1]
     x = (dec.token_embedding.weight[tok]
          + dec.positional_embedding.index_select(0, pos)[None]).to(cfg.dtype)
-    for li, block in enumerate(dec.blocks):
-        h = block.attn_ln(x)
-        at = block.attn
+    blocks = dec.blocks
+    h = _residual_ln(x, blocks[0].attn_ln)
+    for li, block in enumerate(blocks):
+        at, ca = block.attn, block.cross_attn
         buf.self_k[li].index_copy_(1, pos, at.key(h))
         buf.self_v[li].index_copy_(1, pos, at.value(h))
         attn = decode_attn.decode_attention(at.query(h), buf.self_k[li], buf.self_v[li],
                                             cfg.n_heads, pos=pos)
-        x = _cross_and_mlp(block, x + at.out(attn), buf.cross_k[li], buf.cross_v[li],
-                           cfg.n_heads)
-    buf.attn_kernel = decode_attn.launches() > launched
-    return _logits(model, dec.ln(x)[:, 0])
+        h = _residual_ln(x, block.cross_attn_ln, at.out, attn)
+        cross = decode_attn.decode_attention(ca.query(h), buf.cross_k[li], buf.cross_v[li],
+                                             cfg.n_heads)
+        h = _residual_ln(x, block.mlp_ln, ca.out, cross)
+        after = blocks[li + 1].attn_ln if li + 1 < len(blocks) else dec.ln
+        h = _residual_ln(x, after, block.mlp[2], gelu(block.mlp[0](h)))
+    buf.attn_kernel = decode_attn.launches() > attn_launched
+    buf.norm_kernel = add_ln.launches() > norm_launched
+    return _logits(model, h[:, 0])
 
 
 def step_graph(model: Whisper, enc_out: torch.Tensor, rows: int, max_len: int):

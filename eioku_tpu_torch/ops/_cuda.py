@@ -25,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNELS = ("scene_diff", "nms", "flash_attention", "decode_attention")
+KERNELS = ("scene_diff", "nms", "flash_attention", "decode_attention", "add_layer_norm")
 # nms.cu must round its IoU exactly like the reference: no contracted FMAs
 _EXTRA_FLAGS = {"nms": ("-fmad=false",)}
 # flash_attention.cu encodes TMA tensor maps with the driver API
@@ -139,6 +139,12 @@ def _configure(lib: ctypes.CDLL) -> None:
             vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, i32, vp]
         lib.eioku_decode_attention.restype = ctypes.c_int
+    if hasattr(lib, "eioku_add_layer_norm"):
+        i32 = ctypes.c_int
+        lib.eioku_add_layer_norm.argtypes = [
+            vp, vp, vp, vp, vp, vp, i32, i32, ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_float, i32, vp]
+        lib.eioku_add_layer_norm.restype = ctypes.c_int
     lib.eioku_cuda_error_string.argtypes = [ctypes.c_int]
     lib.eioku_cuda_error_string.restype = ctypes.c_char_p
 

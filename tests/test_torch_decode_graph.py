@@ -11,8 +11,9 @@ NVIDIA GPU (skipped elsewhere): the graphed step against the same step
 run eagerly in bf16, whole decodes, one capture per shape, a graph in use
 kept from a second decode, foreign buffers, the TP and int8 decodes,
 which stay eager, and every graphed and int8 step's attention through the
-decode attention kernel (ops/decode_attention.py). This file imports no
-JAX, so on a GPU host without JAX it runs on its own:
+decode attention kernel (ops/decode_attention.py) and its residual adds
+and LayerNorms through the add-and-LayerNorm kernel (ops/add_layer_norm.py).
+This file imports no JAX, so on a GPU host without JAX it runs on its own:
 
     python -m pytest --noconftest tests/test_torch_decode_graph.py -q
 """
@@ -22,6 +23,7 @@ import torch
 from eioku_tpu_torch.models import layers
 from eioku_tpu_torch.models.whisper import decoding, model
 from eioku_tpu_torch.models.whisper.tokenizer import WhisperTokens
+from eioku_tpu_torch.ops.decode_attention import decode_attention_plain
 from eioku_tpu_torch.parallel import mesh
 from eioku_tpu_torch.utils.metrics import METRICS
 
@@ -60,7 +62,8 @@ def _beam_sources(windows: int, beams: int, g: torch.Generator) -> torch.Tensor:
 @torch.no_grad()
 def _prefix_step(m, cross_k, cross_v, tokens, self_k, self_v, pos: int):
     """The step with self-attention over positions 0..pos of the caches
-    alone, no mask."""
+    alone, no mask, and each residual add and LayerNorm an operation of its
+    own."""
     cfg, dec = m.cfg, m.decoder
     x = (dec.token_embedding.weight[tokens[:, pos]][:, None, :]
          + dec.positional_embedding[pos][None, None]).to(cfg.dtype)
@@ -71,8 +74,11 @@ def _prefix_step(m, cross_k, cross_v, tokens, self_k, self_v, pos: int):
         self_v[li, :, pos] = at.value(h)[:, 0]
         attn = model._attend(at.query(h), self_k[li, :, :pos + 1], self_v[li, :, :pos + 1],
                              cfg.n_heads)
-        x = model._cross_and_mlp(block, x + at.out(attn), cross_k[li], cross_v[li],
-                                 cfg.n_heads)
+        x = x + at.out(attn)
+        ca = block.cross_attn
+        x = x + ca.out(decode_attention_plain(ca.query(block.cross_attn_ln(x)), cross_k[li],
+                                              cross_v[li], cfg.n_heads))
+        x = x + model._mlp(block.mlp_ln(x), block)
     return model._logits(m, dec.ln(x)[:, 0])
 
 
@@ -215,6 +221,7 @@ def test_graphed_step_matches_the_eager_step(tiny_bf16, card):
         torch.testing.assert_close(self_k, eager[1], rtol=0, atol=0)
         torch.testing.assert_close(self_v, eager[2], rtol=0, atol=0)
         assert graph.graph is not None
+        assert graph.buffers.attn_kernel and graph.buffers.norm_kernel  # K4, K5 in the graph
 
 
 @pytest.mark.cuda
@@ -301,5 +308,21 @@ def test_every_step_takes_the_attention_kernel(tiny_bf16, card, path):
     counters = _last_counters(lambda: _decode(m, enc, 5))
     assert counters["decode_steps"] > 0
     assert counters["decode_attn_kernel_steps"] / counters["decode_steps"] * 100 == 100
+    replays = counters["decode_steps"] if path == "graphed" else 0
+    assert counters["decode_graph_replays"] == replays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["graphed", "int8"])
+def test_every_step_takes_the_norm_kernel(tiny_bf16, card, path):
+    """decode_norm_kernel_pct, `decode_norm_kernel_steps` / `decode_steps`
+    x 100, reads 100: every replay of a graph captured with the
+    add-and-LayerNorm kernel, and every eager step of the int8 decoder,
+    which launches it."""
+    enc = _enc(2, TINY_BF16, card, 9)
+    m = tiny_bf16 if path == "graphed" else layers.quantize_linears(_whisper(TINY_BF16, card))
+    counters = _last_counters(lambda: _decode(m, enc, 5))
+    assert counters["decode_steps"] > 0
+    assert counters["decode_norm_kernel_steps"] / counters["decode_steps"] * 100 == 100
     replays = counters["decode_steps"] if path == "graphed" else 0
     assert counters["decode_graph_replays"] == replays
