@@ -1,6 +1,9 @@
-"""Chapters of a transcript: the `summarization` task, Moonlight-16B-A3B
-(`models/llm/`) writing a title and summary for each section of a
-recording's transcript. No counterpart in the JAX package.
+"""Chapters of a transcript: the `summarization` task, a language model of
+`models/llm/` writing a recording's chapters from its transcript. No
+counterpart in the JAX package. The model's `model_type` chooses the path:
+Moonlight-16B-A3B (`deepseek_v3`, the default) writes a title and summary
+for each section; Kimi-Linear-48B-A3B (`kimi_linear`) writes the chapter
+list of the whole transcript at once.
 
 The transcript's rows, as `transcription` returns them, come in through
 `config["segments"]`. They are cut at segment boundaries into near-equal
@@ -17,14 +20,20 @@ emitted EOS, checked every `EOS_CHECK_STEPS` steps (the one read of the
 device inside the loop) and cut there; without it every row runs all
 steps.
 
-Other settings: `model` ("moonlight-16b-a3b"), `dims` (overrides of its
+Kimi-Linear takes the whole transcript as one prompt (BOS, WHOLE_INSTRUCTION,
+every `[h:mm:ss] text` line, WHOLE_CUE) and decodes it as one row, with no
+padding rows; on the card the cache's length is `cache_tokens` where that
+is longer than the prompt and the new tokens rounded up to LENGTH_BUCKET,
+so that jobs of every length up to it replay one decode graph. It returns
+one row for the whole recording.
+
+Other settings: `model` ("moonlight-16b-a3b" or "kimi-linear-48b-a3b"), `dims` (overrides of its
 `config.json` keys, for small test models), `compute_dtype` ("bfloat16" on
-the card, "float32" on the CPU). Weights: `{model_cache_dir}/
-moonlight-16b-a3b/` (the checkpoint's safetensors shards) or
-`moonlight-16b-a3b.pt` (a state dict), in the checkpoint's key names;
-random weights otherwise. The tokenizer is a stand-in
-(`models/llm/tokenizer.py`) until Moonlight's tokenizer file is on the
-machine.
+the card, "float32" on the CPU). Weights: `{model_cache_dir}/<model>/` (the
+checkpoint's safetensors shards) or `<model>.pt` (a state dict), in the
+checkpoint's key names; random weights otherwise. The tokenizer is a
+stand-in (`models/llm/tokenizer.py`) until the models' tokenizer file (one
+for both) is on the machine.
 
 Rows: one per section, {"payload": {"start_ms", "end_ms", "text",
 "token_ids"}, "span_start_ms", "span_end_ms"}.
@@ -36,7 +45,7 @@ at the copy of the emitted ids). Counters: `llm_sections`,
 (rows x steps), `moe_token_slots` (token-expert pairs routed, summed over
 the expert layers) and `moe_experts_hit` (experts given at least one token,
 summed over the expert-layer calls; counted on the device, read once a
-task).
+task); Kimi-Linear's prefill adds `kda_chunks` and `kda_state_bytes`.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from itertools import accumulate
 
 import torch
 
+from eioku_tpu_torch.models.llm import kimi_linear as kimi
 from eioku_tpu_torch.models.llm import model as llm
 from eioku_tpu_torch.models.llm.tokenizer import StandInTokenizer
 from eioku_tpu_torch.utils.device import resolve_device
@@ -63,6 +73,9 @@ DEFAULT_MODEL = "moonlight-16b-a3b"
 INSTRUCTION = ("Write one chapter of this recording's table of contents: a short title, then "
                "two or three sentences that summarise the part of the transcript below.")
 CUE = "Chapter:"
+WHOLE_INSTRUCTION = ("Write this recording's table of contents from its whole transcript below: "
+                     "one line a chapter, its start as [h:mm:ss], then a short title.")
+WHOLE_CUE = "Chapters:"
 EOS_CHECK_STEPS = 16
 # rows of a batch, and of every decode graph on the card: a batch's padding
 # rows copy its first row, so they route to its experts and add little to
@@ -71,11 +84,10 @@ DECODE_ROWS = 8
 LENGTH_BUCKET = 1024  # a decode graph's cache length is a multiple of this
 
 
-def load_moonlight_checkpoint(path: str, cfg: llm.MoonlightConfig, dtype: torch.dtype,
-                              device) -> llm.Moonlight:
-    """A checkpoint in its own key names: a directory of safetensors shards
-    (read tensor by tensor) or a torch state dict file (memory-mapped)."""
-    model = llm.empty_model(cfg, dtype, device)
+def _checkpoint(path: str):
+    """A checkpoint's tensors in its own key names: from a directory of
+    safetensors shards, (name, tensor) pairs read tensor by tensor; from a
+    torch state dict file, the mapping (memory-mapped)."""
     if os.path.isdir(path):
         from safetensors import safe_open
 
@@ -84,27 +96,47 @@ def load_moonlight_checkpoint(path: str, cfg: llm.MoonlightConfig, dtype: torch.
                 with safe_open(shard, "pt") as f:
                     for key in f.keys():
                         yield key, f.get_tensor(key)
-        return llm.load_state_dict(model, pairs())
-    return llm.load_state_dict(model, torch.load(path, map_location="cpu", mmap=True,
-                                                 weights_only=True))
+        return pairs()
+    return torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+
+
+def load_moonlight_checkpoint(path: str, cfg: llm.MoonlightConfig, dtype: torch.dtype,
+                              device) -> llm.Moonlight:
+    return llm.load_state_dict(llm.empty_model(cfg, dtype, device), _checkpoint(path))
+
+
+def load_kimi_linear_checkpoint(path: str, cfg: kimi.KimiLinearConfig, dtype: torch.dtype,
+                                device) -> kimi.KimiLinear:
+    return kimi.load_state_dict(kimi.empty_model(cfg, dtype, device), _checkpoint(path))
+
+
+def _family(model_type: str):
+    """(config class, model module, checkpoint loader) of a `model_type`."""
+    if model_type == "deepseek_v3":
+        return llm.MoonlightConfig, llm, load_moonlight_checkpoint
+    if model_type == "kimi_linear":
+        return kimi.KimiLinearConfig, kimi, load_kimi_linear_checkpoint
+    raise ValueError(f"unsupported language model type {model_type!r}")
 
 
 @lru_cache(maxsize=1)
 def _load_model(name: str, dims: str, cache_dir: str | None, compute_dtype: str,
-                device: torch.device) -> llm.Moonlight:
+                device: torch.device):
     """The named model (its sizes overridden by the JSON `dims`), loaded
     once per process."""
     if name not in llm.MODELS:
         raise ValueError(f"unknown language model {name!r}; known: {sorted(llm.MODELS)}")
-    cfg = llm.MoonlightConfig.from_dict({**llm.MODELS[name], **json.loads(dims)})
+    keys = {**llm.MODELS[name], **json.loads(dims)}
+    config, module, load = _family(keys["model_type"])
+    cfg = config.from_dict(keys)
     dtype = getattr(torch, compute_dtype)
     for cand in ([os.path.join(cache_dir, name), os.path.join(cache_dir, name + ".pt")]
                  if cache_dir else []):
         if os.path.exists(cand):
             log.info("loading %s", cand)
-            return load_moonlight_checkpoint(cand, cfg, dtype, device)
+            return load(cand, cfg, dtype, device)
     log.warning("no %s checkpoint in %s: random weights", name, cache_dir)
-    return llm.init_random(cfg, dtype, device)
+    return module.init_random(cfg, dtype, device)
 
 
 def _mark(ms: int) -> str:
@@ -112,8 +144,13 @@ def _mark(ms: int) -> str:
     return f"[{s // 60:02d}:{s % 60:02d}]"
 
 
+def _hour_mark(ms: int) -> str:
+    s = int(ms) // 1000
+    return f"[{s // 3600}:{s // 60 % 60:02d}:{s % 60:02d}]"
+
+
 def split_sections(segments: list[dict], tokenizer: StandInTokenizer,
-                   section_tokens: int) -> list[dict]:
+                   section_tokens: int, mark=_mark) -> list[dict]:
     """The transcript's rows cut at segment boundaries into the fewest
     near-equal sections of at most `section_tokens` tokens (a single
     longer segment stands alone): [{"start_ms", "end_ms", "text",
@@ -123,7 +160,7 @@ def split_sections(segments: list[dict], tokenizer: StandInTokenizer,
         p = row.get("payload", row)
         start = int(row.get("span_start_ms", p.get("start_ms", 0)))
         end = int(row.get("span_end_ms", p.get("end_ms", start)))
-        lines.append((start, end, f"{_mark(start)} {p.get('text', '').strip()}"))
+        lines.append((start, end, f"{mark(start)} {p.get('text', '').strip()}"))
     if not lines:
         return []
     cum = list(accumulate((len(tokenizer.encode(t)) for _, _, t in lines), initial=0))
@@ -152,34 +189,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: llm.Moonlight, prompts: list[list[int]], max_new_tokens: int,
-             stop_at_eos: bool, width: int = 0) -> list[list[int]]:
+def generate(model, prompts: list[list[int]], max_new_tokens: int, stop_at_eos: bool,
+             width: int = 0, cache_tokens: int = 0) -> list[list[int]]:
     """Greedy generation of a batch of prompts at once: one prefill (the rows
     right-padded, the first id from its logits), then a decode step of all
     rows a position, each row at its own, until `max_new_tokens` ids a row.
     On the card the rows are padded to `width` with copies of the first
     (they route to its experts) and the cache's length rounded up to
-    LENGTH_BUCKET, and each step replays the CUDA graph of that shape. The
-    loop reads nothing back from the device except, with `stop_at_eos`,
-    whether every row has emitted EOS, every `EOS_CHECK_STEPS` steps; the
-    rows are then cut before their EOS."""
+    LENGTH_BUCKET (or `cache_tokens`, if longer), and each step replays the
+    CUDA graph of that shape. The loop reads nothing back from the device
+    except, with `stop_at_eos`, whether every row has emitted EOS, every
+    `EOS_CHECK_STEPS` steps; the rows are then cut before their EOS."""
     dev, cfg = model.device, model.cfg
+    fam = kimi if isinstance(model, kimi.KimiLinear) else llm
     rows, lengths = len(prompts), [len(p) for p in prompts]
     eos, steps = cfg.eos_token_id, max_new_tokens - 1
     length = max(lengths) + steps
     if dev.type == "cuda" and steps > 0:
         width = max(width, rows)
-        length = min(-(-length // LENGTH_BUCKET) * LENGTH_BUCKET, cfg.max_position_embeddings)
-        holder = llm.decode_graph(model, width, length, steps)
+        length = max(min(-(-length // LENGTH_BUCKET) * LENGTH_BUCKET, cfg.context_length),
+                     min(cache_tokens, cfg.context_length))
+        holder = fam.decode_graph(model, width, length, steps)
     else:
         width, holder = rows, nullcontext()
     with holder as graph:
-        cache = (llm.LatentCache(cfg, width, length, steps, model.dtype, dev) if graph is None
-                 else graph.buffers)
+        cache = fam.make_cache(model, width, length, steps) if graph is None else graph.buffers
         cache.reset()
         with METRICS.span("llm.prefill"):
             ids = torch.tensor([t for p in prompts for t in p], device=dev)
-            logits = llm.prefill(model, ids, lengths, cache)
+            logits = fam.prefill(model, ids, lengths, cache)
             cache.copy_first_row(rows)
             out = torch.empty(width, max_new_tokens, dtype=torch.long, device=dev)
             out[:rows, 0] = logits.argmax(-1)
@@ -189,7 +227,7 @@ def generate(model: llm.Moonlight, prompts: list[list[int]], max_new_tokens: int
         with METRICS.span("llm.decode"):
             pos = torch.tensor(lengths + lengths[:1] * (width - rows), device=dev)
             for t in range(1, max_new_tokens):
-                logits = llm.decode_step(model, out[:, t - 1], pos, cache)
+                logits = fam.decode_step(model, out[:, t - 1], pos, cache)
                 out[:, t] = logits.argmax(-1)
                 pos += 1
                 done += 1
@@ -222,6 +260,8 @@ def run_summarization(video_path: str, config: dict, model_cache_dir: str | None
                             compute, dev)
     cfg = model.cfg
     tok = StandInTokenizer(cfg.vocab_size, cfg.bos_token_id, cfg.eos_token_id)
+    if isinstance(model, kimi.KimiLinear):
+        return _whole_chapters(model, tok, config)
     with METRICS.span("chapters.sections"):
         sections = split_sections(config.get("segments") or [], tok,
                                   int(config.get("section_tokens", 2048)))
@@ -239,3 +279,22 @@ def run_summarization(video_path: str, config: dict, model_cache_dir: str | None
                          "text": tok.decode(ids), "token_ids": ids},
              "span_start_ms": s["start_ms"], "span_end_ms": s["end_ms"]}
             for s, ids in zip(sections, emitted)]
+
+
+def _whole_chapters(model: kimi.KimiLinear, tok: StandInTokenizer, config: dict) -> list[dict]:
+    """Kimi-Linear's chapters: the whole transcript as one prompt, decoded
+    as one row; one row for the recording."""
+    with METRICS.span("chapters.sections"):
+        whole = split_sections(config.get("segments") or [], tok, math.inf, _hour_mark)
+    if not whole:
+        return []
+    s = whole[0]
+    METRICS.count("llm_sections", 1)
+    prompt = ([tok.bos_id] + tok.encode(WHOLE_INSTRUCTION) + tok.encode(s["text"])
+              + tok.encode(WHOLE_CUE))
+    ids = generate(model, [prompt], int(config.get("max_new_tokens", 128)),
+                   bool(config.get("stop_at_eos", True)), 1,
+                   int(config.get("cache_tokens", 0)))[0]
+    return [{"payload": {"start_ms": s["start_ms"], "end_ms": s["end_ms"],
+                         "text": tok.decode(ids), "token_ids": ids},
+             "span_start_ms": s["start_ms"], "span_end_ms": s["end_ms"]}]

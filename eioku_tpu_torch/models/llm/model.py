@@ -68,9 +68,28 @@ MOONLIGHT_16B_A3B = {
     "topk_method": "noaux_tc", "n_group": 1, "topk_group": 1, "vocab_size": 163840,
     "rms_norm_eps": 1e-5, "rope_theta": 50000.0, "max_position_embeddings": 8192,
     "tie_word_embeddings": False, "hidden_act": "silu", "rope_scaling": None,
-    "bos_token_id": 163584, "eos_token_id": 163585,
+    "bos_token_id": 163584, "eos_token_id": 163585, "model_type": "deepseek_v3",
 }
-MODELS = {"moonlight-16b-a3b": MOONLIGHT_16B_A3B}
+# moonshotai/Kimi-Linear-48B-A3B-Instruct's config.json, the keys its model
+# reads (models/llm/kimi_linear.py); BOS and EOS as Moonlight's tokenizer
+# places them
+KIMI_LINEAR_48B_A3B = {
+    "hidden_size": 2304, "num_hidden_layers": 27, "num_attention_heads": 32,
+    "kv_lora_rank": 512, "q_lora_rank": None, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "mla_use_nope": True,
+    "intermediate_size": 9216, "moe_intermediate_size": 1024, "num_experts": 256,
+    "num_experts_per_token": 8, "num_shared_experts": 1, "first_k_dense_replace": 1,
+    "moe_layer_freq": 1, "routed_scaling_factor": 2.446, "moe_renormalize": True,
+    "moe_router_activation_func": "sigmoid", "use_grouped_topk": True,
+    "num_expert_group": 1, "topk_group": 1, "vocab_size": 163840, "rms_norm_eps": 1e-5,
+    "model_max_length": 1048576, "tie_word_embeddings": False, "hidden_act": "silu",
+    "linear_attn_config": {"full_attn_layers": [4, 8, 12, 16, 20, 24, 27], "head_dim": 128,
+                           "kda_layers": [1, 2, 3, 5, 6, 7, 9, 10, 11, 13, 14, 15, 17, 18,
+                                          19, 21, 22, 23, 25, 26],
+                           "num_heads": 32, "short_conv_kernel_size": 4},
+    "bos_token_id": 163584, "eos_token_id": 163585, "model_type": "kimi_linear",
+}
+MODELS = {"moonlight-16b-a3b": MOONLIGHT_16B_A3B, "kimi-linear-48b-a3b": KIMI_LINEAR_48B_A3B}
 
 
 @dataclass(frozen=True)
@@ -140,6 +159,29 @@ class MoonlightConfig:
 
     def is_dense(self, layer: int) -> bool:
         return layer < self.first_k_dense_replace
+
+    # the MLA and expert functions below are shared with Kimi-Linear
+    # (kimi_linear.py), whose config names these otherwise
+    mla_use_nope = False
+
+    @property
+    def context_length(self) -> int:
+        return self.max_position_embeddings
+
+    @property
+    def latent_layers(self) -> int:
+        """Layers with entries in the latent cache: every layer."""
+        return self.num_hidden_layers
+
+    @property
+    def router_experts(self) -> int:
+        """The router's outputs: every expert of the layer."""
+        return self.n_routed_experts
+
+    @property
+    def held_experts(self) -> range:
+        """The experts whose weights this model holds: all of them."""
+        return range(self.n_routed_experts)
 
 
 def _param(*shape: int, dtype: torch.dtype) -> nn.Parameter:
@@ -335,12 +377,13 @@ def _project(layer: MoonlightLayer, cfg: MoonlightConfig, x: torch.Tensor,
              cos: torch.Tensor, sin: torch.Tensor):
     """Normed input [N, d] -> q_nope [N, H, 128], rotated q_pe [N, H, 64] and
     the latent entry [N, 576] (normed c_kv, rotated k_pe); cos and sin
-    [N, 64] in the activations' type."""
+    [N, 64] in the activations' type (unread with `mla_use_nope`)."""
     n, h = x.shape[0], cfg.num_attention_heads
     nope, lora = h * cfg.qk_nope_head_dim, cfg.kv_lora_rank
     a = F.linear(x, layer.qkv_a)
-    pe = _rope(a[:, nope + lora:].view(n, h + 1, cfg.qk_rope_head_dim), cos[:, None],
-               sin[:, None])
+    pe = a[:, nope + lora:].view(n, h + 1, cfg.qk_rope_head_dim)
+    if not cfg.mla_use_nope:  # with mla_use_nope the rope part is not rotated
+        pe = _rope(pe, cos[:, None], sin[:, None])
     c_kv = rms_norm(a[:, nope:nope + lora], layer.kv_a_layernorm, cfg.rms_norm_eps)
     return (a[:, :nope].view(n, h, cfg.qk_nope_head_dim), pe[:, :h],
             torch.cat([c_kv, pe[:, h]], -1))
@@ -433,13 +476,27 @@ def moe(layer: MoonlightLayer, cfg: MoonlightConfig, x: torch.Tensor):
     """DeepSeekMoE on x [N, d]: each token's k routed experts, weighted and
     summed in fp32, plus the shared experts. The token-expert pairs are
     sorted by expert on the device. Returns (output [N, d], the experts
-    chosen [N, k], the group ends int32 [E])."""
+    chosen [N, k], the group ends int32 [E held]).
+
+    A layer that holds a share of the experts (`cfg.held_experts`, a range
+    of the router's outputs, as expert parallelism gives each card) routes
+    over all of them and computes its own experts' part: pairs routed
+    elsewhere sort after every group, the grouped GEMMs leave them out and
+    their rows are zeroed before the weighted sum."""
     n, k = x.shape[0], cfg.num_experts_per_tok
     w, chosen = route(layer, cfg, x)
-    by_expert, order = torch.sort(chosen.reshape(-1), stable=True)
+    held = cfg.held_experts
+    key = chosen.reshape(-1)
+    partial = len(held) < cfg.router_experts
+    if partial:
+        local = key - held.start
+        key = torch.where((local >= 0) & (local < len(held)), local, len(held))
+    by_expert, order = torch.sort(key, stable=True)
     ends = torch.searchsorted(by_expert, layer.expert_ends, out_int32=True)
     y = routed_experts(x.index_select(0, order // k), layer.experts_gate_up,
                        layer.experts_down, ends)
+    if partial:  # rows past the last group: pairs of experts held elsewhere
+        y.masked_fill_(torch.arange(y.shape[0], device=y.device)[:, None] >= ends[-1], 0)
     y = torch.empty_like(y).index_copy_(0, order, y).view(n, k, -1)
     routed = (y.float() * w.unsqueeze(-1)).sum(1).to(x.dtype)
     return routed + _mlp(layer.gate_up, layer.down, x), chosen, ends
@@ -453,21 +510,20 @@ def _logits(model: Moonlight, h: torch.Tensor) -> torch.Tensor:
 
 
 class LatentCache:
-    """One generation's state on the device: per layer and row, the latent
-    entries of `length` positions ([L, R, T, 576], zeros where nothing was
-    written); each row's prompt length; the experts each decode step routed
-    each row to, by expert layer (`routes` [L_moe, R, steps, k]); the
-    experts the prefill's expert-layer calls gave at least one token (a
-    device count); and the step's tokens and positions [R], which a graphed
-    step reads (`decode_graph`)."""
+    """One generation's state on the device: per latent-attention layer and
+    row, the latent entries of `length` positions ([L, R, T, 576], zeros
+    where nothing was written); each row's prompt length; the experts each
+    decode step routed each row to, by expert layer (`routes` [L_moe, R,
+    steps, k]); the held experts the prefill's expert-layer calls gave at
+    least one token (a device count); and the step's tokens and positions
+    [R], which a graphed step reads (`decode_graph`)."""
 
     def __init__(self, cfg: MoonlightConfig, rows: int, length: int, steps: int,
                  dtype: torch.dtype, device):
-        if length > cfg.max_position_embeddings:
-            raise ValueError(f"{length} positions, past the model's "
-                             f"{cfg.max_position_embeddings}")
+        if length > cfg.context_length:
+            raise ValueError(f"{length} positions, past the model's {cfg.context_length}")
         moe_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
-        self.kv = torch.zeros(cfg.num_hidden_layers, rows, length, cfg.latent_dim,
+        self.kv = torch.zeros(cfg.latent_layers, rows, length, cfg.latent_dim,
                               dtype=dtype, device=device)
         self.rows = torch.arange(rows, device=device)
         self.prompt = torch.zeros(rows, dtype=torch.long, device=device)
@@ -476,7 +532,8 @@ class LatentCache:
         self.prefill_hits = torch.zeros((), dtype=torch.long, device=device)
         self.tokens = torch.zeros(rows, dtype=torch.long, device=device)
         self.pos = torch.zeros(rows, dtype=torch.long, device=device)
-        self.n_experts = cfg.n_routed_experts
+        self.n_experts = cfg.router_experts
+        self.held = cfg.held_experts
         self.length = length
 
     def reset(self) -> None:
@@ -494,14 +551,14 @@ class LatentCache:
         self.prompt[rows:] = self.prompt[0]
 
     def experts_hit(self, rows: int, steps: int) -> int:
-        """Experts given at least one token, summed over the expert-layer
-        calls of the prefill and of `steps` decode steps of the first
-        `rows` rows: one read of the device."""
+        """Held experts given at least one token, summed over the
+        expert-layer calls of the prefill and of `steps` decode steps of the
+        first `rows` rows: one read of the device."""
         moe_layers = self.routes.shape[0]
         routes = self.routes[:, :rows, :steps].transpose(1, 2).reshape(moe_layers, steps, -1)
         hit = torch.zeros(moe_layers, steps, self.n_experts, dtype=torch.bool,
                           device=routes.device).scatter_(2, routes, True)
-        return int(self.prefill_hits + hit.sum())
+        return int(self.prefill_hits + hit[..., self.held.start:self.held.stop].sum())
 
 
 def _groups_hit(ends: torch.Tensor) -> torch.Tensor:
@@ -579,6 +636,11 @@ def decode_step(model: Moonlight, tokens: torch.Tensor, pos: torch.Tensor,
     cache.pos.copy_(pos)
     graph = step_graphs.holding(model, lambda buffers: buffers is cache)
     return _decode_eager(model, cache) if graph is None else graph.replay(model)
+
+
+def make_cache(model: Moonlight, rows: int, length: int, steps: int) -> LatentCache:
+    """An eager generation's cache."""
+    return LatentCache(model.cfg, rows, length, steps, model.dtype, model.device)
 
 
 def decode_graph(model: Moonlight, rows: int, length: int, steps: int):

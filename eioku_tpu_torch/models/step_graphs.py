@@ -5,7 +5,10 @@ holder of Whisper's and Moonlight's graphed decode steps.
 model writes its inputs into `graph.buffers` and calls `replay`; the first
 replay captures `body(model, buffers)` after one eager run on a side stream
 (the allocator's blocks and the libraries' workspaces), whose writes are the
-ones the replay repeats. Counters `{prefix}decode_graph_captures` and
+ones the replay repeats. Buffers that a step updates from their own values
+(a recurrent state: Kimi-Linear's) are listed in `buffers.carried`; the
+eager run's updates to them are undone, so that the first step advances
+them once. Counters `{prefix}decode_graph_captures` and
 `{prefix}decode_graph_replays`.
 """
 from __future__ import annotations
@@ -50,12 +53,21 @@ class CapturedStep:
         METRICS.count(self.prefix + "decode_graph_replays")
         return self.logits.clone()
 
+    def _warm_up(self, model) -> None:
+        """One eager run of the body, its updates to `buffers.carried`
+        undone."""
+        carried = getattr(self.buffers, "carried", ())
+        before = [t.clone() for t in carried]
+        self.body(model, self.buffers)
+        for t, b in zip(carried, before):
+            t.copy_(b)
+
     def _capture(self, model):
         with torch.cuda.device(next(model.parameters()).device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
-                self.body(model, self.buffers)
+                self._warm_up(model)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):

@@ -94,8 +94,13 @@ class _StandIn:
 
 
 def _capture_eagerly(self, model):
-    self.body(model, self.buffers)  # the warm-up
+    self._warm_up(model)
+    # a capture runs nothing: what this run carries forward is undone
+    carried = getattr(self.buffers, "carried", ())
+    before = [t.clone() for t in carried]
     self.logits = self.body(model, self.buffers)
+    for t, b in zip(carried, before):
+        t.copy_(b)
     return _StandIn(self, model)
 
 
@@ -155,14 +160,47 @@ def _moonlight_decode(monkeypatch, graphed: bool):
     return out + [cache.kv, cache.routes], steps
 
 
-@pytest.mark.parametrize("decode, prefix", [(_whisper_decode, ""), (_moonlight_decode, "llm_")],
-                         ids=["whisper", "moonlight"])
+KIMI = {**llm.KIMI_LINEAR_48B_A3B,
+        "hidden_size": 64, "num_hidden_layers": 4, "num_attention_heads": 4, "kv_lora_rank": 32,
+        "qk_nope_head_dim": 16, "qk_rope_head_dim": 8, "v_head_dim": 16,
+        "intermediate_size": 128, "moe_intermediate_size": 32, "num_experts": 4,
+        "num_router_experts": 8, "num_experts_per_token": 2, "vocab_size": 512,
+        "model_max_length": 64, "bos_token_id": 256, "eos_token_id": 257,
+        "linear_attn_config": {"full_attn_layers": [4], "kda_layers": [1, 2, 3], "head_dim": 16,
+                               "num_heads": 4, "short_conv_kernel_size": 4}}
+
+
+def _kimi_decode(monkeypatch, graphed: bool):
+    """Greedy steps of a tiny Kimi-Linear (a recurrent state the step
+    carries forward) on a graph's HybridCache or a cache of its own."""
+    from eioku_tpu_torch.models.llm import kimi_linear as kimi
+
+    model = kimi.init_random(kimi.KimiLinearConfig.from_dict(KIMI), torch.float32, "cpu")
+    with torch.no_grad():
+        model.lm_head.mul_(50.0)  # logits that tell tokens apart
+    prompt, steps = [256, 5, 77, 3, 9, 41, 2], 6
+    with (kimi.decode_graph(model, 1, 16, steps) if graphed
+          else contextlib.nullcontext()) as graph:
+        cache = graph.buffers if graphed else kimi.make_cache(model, 1, 16, steps)
+        cache.reset()
+        out = [kimi.prefill(model, torch.tensor(prompt), [len(prompt)], cache)]
+        tokens, pos = out[0].argmax(-1), torch.tensor([len(prompt)])
+        for _ in range(steps):
+            out.append(kimi.decode_step(model, tokens, pos, cache))
+            tokens, pos = out[-1].argmax(-1), pos + 1
+    return out + [cache.kv, cache.state, cache.conv, cache.routes], steps
+
+
+@pytest.mark.parametrize("decode, prefix", [(_whisper_decode, ""), (_moonlight_decode, "llm_"),
+                                            (_kimi_decode, "llm_")],
+                         ids=["whisper", "moonlight", "kimi-linear"])
 def test_graphed_steps_replay_the_eager_ones(decode, prefix, monkeypatch):
     """Through the stand-in capture, each decoder's graphed steps give what
     its eager steps give (its inputs written into the buffers before each
-    replay); the graph is captured at its first replay and counted under the
-    decoder's prefix: `decode_graph_*` for Whisper, `llm_decode_graph_*` for
-    Moonlight, the names the benchmark's readers take."""
+    replay; a recurrent state advanced once a step, the capture's warm-up
+    undone); the graph is captured at its first replay and counted under
+    the decoder's prefix: `decode_graph_*` for Whisper, `llm_decode_graph_*`
+    for the language models, the names the benchmark's readers take."""
     monkeypatch.setattr(step_graphs.CapturedStep, "_capture", _capture_eagerly)
     with METRICS.task("decode"):
         graphed, steps = decode(monkeypatch, True)
